@@ -36,7 +36,8 @@ from pytorch_hmm_tpu import create_left_to_right_matrix, metrics
 from pytorch_hmm_tpu.alignment import ctc_viterbi_alignment
 from pytorch_hmm_tpu.core.semiring import safe_log
 from pytorch_hmm_tpu.emissions import diag_gaussian_log_probs
-from pytorch_hmm_tpu.ops import auto_viterbi, auto_hsmm_viterbi
+from pytorch_hmm_tpu.core.hsmm import hsmm_viterbi
+from pytorch_hmm_tpu.ops import auto_viterbi
 
 
 def synthesize(rng, n_utts, n_phones, feat_dim, mean_dur, sep, noise_std):
@@ -119,7 +120,7 @@ def align_hsmm_pmf(feats, lens, means, noise_std, mean_dur, max_dur=40):
     nxt = nxt.at[P - 1, P - 1].set(1.0)
     log_a = safe_log(nxt)
     log_pi = safe_log(jnp.zeros((P,)).at[0].set(1.0) + 1e-8)
-    return auto_hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lens)[0]
+    return hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lens)[0]
 
 
 def align_ctc(feats, lens, means, noise_std, n_phones):

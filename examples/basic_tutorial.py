@@ -1,7 +1,6 @@
 """Basic tutorial (reference: ``examples/basic_tutorial.py`` — 6 parts).
 
-The same six-part arc as the reference tutorial, rebuilt for the
-TPU-native stack: jit-compiled scans instead of per-frame Python loops,
+The same six-part arc as the reference tutorial, rebuilt for JAX: jit-compiled scans instead of per-frame Python loops,
 first-class ragged ``lengths=`` instead of manual masking, and JAX
 sharding instead of ``.to(device)``.
 

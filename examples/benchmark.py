@@ -6,11 +6,10 @@ family, records device memory alongside timing, and writes a JSON report
 comparable to the reference's ``PERFORMANCE.md`` tables.
 
 Unlike the reference harness (wall clock + ``torch.cuda.synchronize``,
-``benchmark.py:81-143``), timings here chain each op through a data
-dependency inside a jitted loop (see ``pytorch_hmm_tpu.profiling``),
-which stays honest on asynchronously-dispatched remote TPU backends.
+``benchmark.py:81-143``), timings here are warmed windows of calls that
+end in ``block_until_ready`` (see ``pytorch_hmm_tpu.profiling``).
 Memory accounting uses ``device.memory_stats()`` where the backend
-provides it (TPU) and live-buffer byte totals everywhere else.
+provides it (the GPU) and live-buffer byte totals everywhere else.
 
 Usage:
     python examples/benchmark.py [--quick | --full] [--output report.json]
@@ -77,10 +76,10 @@ def _live_bytes() -> int:
 
 
 def measure(fn, *args, reps: int) -> Dict:
-    """Chained device time + memory delta for one workload.
+    """Device time + memory delta for one workload.
 
     ``retained_mb`` is the live-buffer growth from holding the output;
-    ``device_*_mb`` are backend allocator stats when available (TPU).
+    ``device_*_mb`` are backend allocator stats when available (GPU).
     """
     before_live = _live_bytes()
     before_dev = _device_mem()

@@ -174,7 +174,8 @@ def main(quick=False):
 
     from pytorch_hmm_tpu import metrics
     from pytorch_hmm_tpu.core.semiring import safe_log
-    from pytorch_hmm_tpu.ops import auto_hsmm_viterbi, auto_viterbi
+    from pytorch_hmm_tpu.core.hsmm import hsmm_viterbi
+    from pytorch_hmm_tpu.ops import auto_viterbi
     from pytorch_hmm_tpu.utils import create_left_to_right_matrix
 
     rng = np.random.default_rng(7)
@@ -213,7 +214,7 @@ def main(quick=False):
         la_h = safe_log(jnp.asarray(
             np.eye(S, k=1) * 1.0 + np.eye(S) * 0.0 + 1e-12
         ))
-        states_s, _ = auto_hsmm_viterbi(lo, la_h, lpi, ld)
+        states_s, _ = hsmm_viterbi(lo, la_h, lpi, ld)
         for key, st in (("HMM", states_h), ("HSMM", states_s)):
             st = np.asarray(st)[0]
             pred_b = np.nonzero(np.diff(st) != 0)[0] + 1

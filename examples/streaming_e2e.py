@@ -1,13 +1,12 @@
-"""End-to-end streaming demo: raw PCM → framing → TPU decode.
+"""End-to-end streaming demo: raw PCM → framing → device decode.
 
-The full production pipeline in one script (VERDICT r2 item 9 — the
-reference claims real-time streaming, reference ``README.md:46``, but
-never demonstrates audio-in-to-states-out). TWO frontends:
+The full production pipeline in one script (the reference claims
+real-time streaming, reference ``README.md:46``, but never demonstrates
+audio-in-to-states-out). TWO frontends:
 
 1. **On-device (default)**: matmul-DFT framing + emission + beam decode
-   fused into ONE jitted TPU dispatch (``frontend.make_pcm_decode_step``)
-   — the whole audio→states path runs on the chip (VERDICT r3 item 4:
-   the host framer was 90% of the r3 e2e budget).
+   fused into ONE jitted dispatch (``frontend.make_pcm_decode_step``)
+   — the whole audio→states path runs on the device.
 2. **Host C++** (``NativeFramer``, the no-JAX-on-host option) feeding
    ``StreamingHMMProcessor.process_chunk``.
 
@@ -81,8 +80,7 @@ def fused_device_pipeline(audio, sample_rate, n_mels, chunk_frames, quick):
     print(
         f"[on-device] audio-in->states-out per {audio_ms:.0f}ms chunk: "
         f"p50={p50:.2f}ms ({audio_ms / p50:.0f}x real time incl. the "
-        f"host->device round trip; the chained-device-time bench row "
-        f"isolates the ~0.1-0.2ms device cost); {states.size} frames, "
+        f"host->device round trip); {states.size} frames, "
         f"{n_changes} state changes"
     )
     assert states.size > 0

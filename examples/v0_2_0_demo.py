@@ -3,8 +3,8 @@
 Walks the feature set the reference showcases for its v0.2.0 release —
 Mixture Gaussian HMM, explicit-duration HSMM, real-time streaming,
 advanced transition matrices, Korean TTS presets, the model factory and
-a cross-model performance comparison — using the TPU-native stack
-(jit-compiled scans, honest chained device timing, JAX PRNG keys).
+a cross-model performance comparison — using jit-compiled scans,
+synchronized device timing and JAX PRNG keys.
 
 Run: python examples/v0_2_0_demo.py [--quick]
 
@@ -205,7 +205,7 @@ def demo_model_factory(quick: bool):
 
 
 def demo_performance_comparison(quick: bool):
-    """Cross-model decode timing (``v0_2_0_demo.py:347-388``) — chained
+    """Cross-model decode timing (``v0_2_0_demo.py:347-388``) — synchronized
     device timing instead of wall clock, plus live-buffer accounting."""
     print("\n=== Performance comparison ===")
     D = 40
@@ -240,7 +240,7 @@ def main(quick: bool = False):
     demo_performance_comparison(quick)
 
     print("\nRunning quick integration test...")
-    assert ph.run_quick_test(), "integration test failed"
+    ph.run_quick_test()  # raises on failure
     print("All demos completed.")
 
 

@@ -1,10 +1,11 @@
-"""pytorch_hmm_tpu — TPU-native HMM speech-processing framework.
+"""pytorch_hmm_tpu — HMM speech-processing framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 ``crlotwhite/pytorch_hmm``: log-domain HMM inference, GMM/neural emission
 models, explicit-duration HSMMs, streaming decoding, DTW/CTC alignment and
-speech metrics — designed TPU-first (scan/associative-scan kernels, SPMD
-sharding over device meshes, static shapes throughout).
+speech metrics — scan/associative-scan recursions, Pallas-Triton trellis
+kernels on the GPU, SPMD sharding over device meshes, static shapes
+throughout.
 
 The public API mirrors the reference package's surface
 (``pytorch_hmm/__init__.py:101-175``) so reference users can migrate
@@ -14,6 +15,10 @@ without relearning names, and adds the distributed layer
 Unlike the reference, importing this package has **no side effects** (the
 reference runs ``auto_configure()`` at import, ``__init__.py:476-477``);
 call :func:`pytorch_hmm_tpu.auto_configure` explicitly if desired.
+
+The functional core imports with JAX, NumPy and optax alone. The flax
+``nnx`` model classes, the streaming processors and the transition
+toolbox load on first use and need flax.
 """
 
 from __future__ import annotations
@@ -65,47 +70,38 @@ from .metrics import (
     save_evaluation_results,
     spectral_distortion,
 )
-from .models import (
-    AdaptiveDurationHSMM,
-    ContextualNeuralHMM,
-    DurationConstrainedHMM,
-    DurationModel,
-    GaussianHMMLayer,
-    HMMLayer,
-    HSMMLayer,
-    MixtureGaussianHMMLayer,
-    NeuralHMM,
-    NeuralObservationModel,
-    NeuralTransitionModel,
-    SemiMarkovHMM,
-)
-from .streaming import (
-    AdaptiveLatencyController,
-    MultiStreamDecoder,
-    StreamingHMMProcessor,
-    StreamingResult,
-)
-from .utils import (
-    AdaptiveTransitionMatrix,
-    AttentionTransition,
-    align_sequences,
-    analyze_transition_patterns,
-    benchmark_transition_operations,
-    compute_state_durations,
-    create_attention_based_transitions,
-    create_duration_constrained_matrix,
-    create_gaussian_observation_model,
-    create_hierarchical_transitions,
-    create_left_to_right_matrix,
-    create_phoneme_aware_transitions,
-    create_prosody_aware_transitions,
-    create_skip_state_matrix,
-    create_transition_matrix,
-    gaussian_log_likelihood,
-    interpolate_features,
-    optimize_transition_matrix,
-    validate_transition_matrix,
-)
+from ._lazy import lazy_getattr
+
+_FLAX_MODULES = {
+    ".models": (
+        "AdaptiveDurationHSMM", "ContextualNeuralHMM",
+        "DurationConstrainedHMM", "DurationModel", "GaussianHMMLayer",
+        "HMMLayer", "HSMMLayer", "MixtureGaussianHMMLayer", "NeuralHMM",
+        "NeuralObservationModel", "NeuralTransitionModel", "SemiMarkovHMM",
+    ),
+    ".streaming": (
+        "AdaptiveLatencyController", "MultiStreamDecoder",
+        "StreamingHMMProcessor", "StreamingResult",
+    ),
+    ".utils": (
+        "AdaptiveTransitionMatrix", "AttentionTransition",
+        "align_sequences", "analyze_transition_patterns",
+        "benchmark_transition_operations", "compute_state_durations",
+        "create_attention_based_transitions",
+        "create_duration_constrained_matrix",
+        "create_gaussian_observation_model",
+        "create_hierarchical_transitions", "create_left_to_right_matrix",
+        "create_phoneme_aware_transitions",
+        "create_prosody_aware_transitions", "create_skip_state_matrix",
+        "create_transition_matrix", "gaussian_log_likelihood",
+        "interpolate_features", "optimize_transition_matrix",
+        "validate_transition_matrix",
+    ),
+}
+__getattr__ = lazy_getattr(__name__, {
+    **{name: mod for mod, names in _FLAX_MODULES.items() for name in names},
+    **{mod[1:]: mod for mod in (*_FLAX_MODULES, ".demo", ".frontend")},
+})
 
 
 def get_version() -> str:

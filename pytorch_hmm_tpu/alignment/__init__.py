@@ -1,7 +1,7 @@
 """Alignment algorithms: DTW and CTC (reference ``alignment/__init__.py``).
 
 Both are wavefront/lattice ``lax.scan`` DPs — no per-cell Python loops —
-plus TPU-era extras (soft-DTW with exact expected alignments, lattice
+plus extras (soft-DTW with exact expected alignments, lattice
 Viterbi forced alignment, a real CTC prefix beam search).
 """
 

@@ -31,7 +31,6 @@ from typing import List, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
 
 from ..core.semiring import logsumexp
 
@@ -74,9 +73,8 @@ def _lattice_masks(expanded: jax.Array, blank_id: int):
 
 def _gather_emissions(log_probs: jax.Array, expanded: jax.Array) -> jax.Array:
     """``lp[b, t, s] = log_probs[t, b, expanded[b, s]]`` as an exact
-    one-hot matmul — a (B, T, S) ``take_along_axis`` gather costs ~9 ms
-    at (B=16, T=500, U=50) on TPU, the batched (T, C) @ (C, S) contraction
-    ~0.1 ms (each output sums exactly one term, so there is no rounding).
+    one-hot matmul in place of a (B, T, S) gather (each output sums
+    exactly one term, so there is no rounding).
     """
     C = log_probs.shape[-1]
     onehot = jax.nn.one_hot(expanded, C, dtype=log_probs.dtype)  # (B, S, C)
@@ -92,11 +90,8 @@ def _gather_emissions(log_probs: jax.Array, expanded: jax.Array) -> jax.Array:
 def _tokens_at(expanded: jax.Array, positions: jax.Array) -> jax.Array:
     """``expanded[b, positions[b, t]]`` as an exact one-hot matmul.
 
-    The obvious ``take_along_axis`` gather costs 0.066 ms at
-    (B=16, T=500, S=101) on v5e — 37% of the whole forced-alignment
-    path, vs ~2 µs for the (B, T, S) @ (B, S) contraction. Each output
-    row sums exactly one integer term < 2²⁴, so the float matmul is
-    exact; HIGHEST keeps the single pass in true f32.
+    Each output row sums exactly one integer term < 2²⁴, so the float
+    matmul is exact; HIGHEST keeps it in true f32.
     """
     S = expanded.shape[1]
     onehot = jax.nn.one_hot(positions, S, dtype=jnp.float32)  # (B, T, S)
@@ -113,22 +108,6 @@ def _shift1(x):
 
 def _shift2(x):
     return jnp.concatenate([jnp.full_like(x[:, :2], _NEG), x[:, :-2]], axis=1)
-
-
-def _use_ctc_kernels(lattice_size: int, batch: int) -> bool:
-    """Pallas banded-lattice kernels on TPU. Evaluated OUTSIDE the
-    jitted implementations (it selects a static arg), so the
-    ``PYTORCH_HMM_TPU_NO_PALLAS`` toggle stays live at call time for
-    direct callers; callers who wrap the CTC API in their own ``jit``
-    bake the choice in at their trace, like every dispatch here."""
-    from ..ops import _pallas_opt_out
-    from ..ops.ctc_kernel import ctc_lattice_supported
-
-    return (
-        not _pallas_opt_out()
-        and jax.default_backend() == "tpu"
-        and ctc_lattice_supported(lattice_size, batch)
-    )
 
 
 def ctc_forward_algorithm(
@@ -148,17 +127,14 @@ def ctc_forward_algorithm(
     Returns:
         ``(log_alpha (B, T, 2U+1), log_likelihood (B,))``.
     """
-    B, U = targets.shape
     return _ctc_forward_impl(
-        log_probs, targets, input_lengths, target_lengths,
-        blank_id=blank_id, use_kernels=_use_ctc_kernels(2 * U + 1, B),
+        log_probs, targets, input_lengths, target_lengths, blank_id=blank_id
     )
 
 
-@partial(jax.jit, static_argnames=("blank_id", "use_kernels"))
+@partial(jax.jit, static_argnames=("blank_id",))
 def _ctc_forward_impl(
-    log_probs, targets, input_lengths, target_lengths,
-    blank_id: int, use_kernels: bool,
+    log_probs, targets, input_lengths, target_lengths, blank_id: int
 ):
     T, B, C = log_probs.shape
     expanded = expand_targets_with_blank(targets, blank_id)  # (B, S)
@@ -174,31 +150,18 @@ def _ctc_forward_impl(
     a0 = a0.at[:, 1].set(jnp.where(target_lengths > 0, lp[:, 0, 1], _NEG))
     a0 = jnp.where(valid_pos, a0, _NEG)
 
-    if use_kernels:
-        from ..ops.ctc_kernel import ctc_lattice_forward
+    def step(carry, xs):
+        a, t = carry, xs
+        stay = a
+        adv = _shift1(a)
+        skip = jnp.where(skip_ok, _shift2(a), _NEG)
+        nxt = lp[:, t] + logsumexp(jnp.stack([stay, adv, skip]), axis=0)
+        nxt = jnp.where(valid_pos, nxt, _NEG)
+        nxt = jnp.where((t < input_lengths)[:, None], nxt, a)
+        return nxt, nxt
 
-        log_alpha = ctc_lattice_forward(
-            lp,
-            jnp.where(skip_ok, 0.0, _NEG),
-            jnp.where(valid_pos, 0.0, _NEG),
-            a0,
-            input_lengths,
-        )
-    else:
-        def step(carry, xs):
-            a, t = carry, xs
-            stay = a
-            adv = _shift1(a)
-            skip = jnp.where(skip_ok, _shift2(a), _NEG)
-            nxt = lp[:, t] + logsumexp(jnp.stack([stay, adv, skip]), axis=0)
-            nxt = jnp.where(valid_pos, nxt, _NEG)
-            nxt = jnp.where((t < input_lengths)[:, None], nxt, a)
-            return nxt, nxt
-
-        _, rest = jax.lax.scan(step, a0, jnp.arange(1, T), unroll=8)
-        log_alpha = jnp.concatenate(
-            [a0[:, None], rest.swapaxes(0, 1)], axis=1
-        )
+    _, rest = jax.lax.scan(step, a0, jnp.arange(1, T), unroll=8)
+    log_alpha = jnp.concatenate([a0[:, None], rest.swapaxes(0, 1)], axis=1)
 
     last = jnp.take_along_axis(
         log_alpha, (input_lengths - 1)[:, None, None].astype(jnp.int32),
@@ -223,17 +186,14 @@ def ctc_backward_algorithm(
     blank_id: int = 0,
 ) -> jax.Array:
     """CTC backward pass → ``log_beta (B, T, 2U+1)`` (``ctc.py:124-199``)."""
-    B, U = targets.shape
     return _ctc_backward_impl(
-        log_probs, targets, input_lengths, target_lengths,
-        blank_id=blank_id, use_kernels=_use_ctc_kernels(2 * U + 1, B),
+        log_probs, targets, input_lengths, target_lengths, blank_id=blank_id
     )
 
 
-@partial(jax.jit, static_argnames=("blank_id", "use_kernels"))
+@partial(jax.jit, static_argnames=("blank_id",))
 def _ctc_backward_impl(
-    log_probs, targets, input_lengths, target_lengths,
-    blank_id: int, use_kernels: bool,
+    log_probs, targets, input_lengths, target_lengths, blank_id: int
 ):
     T, B, C = log_probs.shape
     expanded = expand_targets_with_blank(targets, blank_id)
@@ -263,17 +223,6 @@ def _ctc_backward_impl(
         [skip_ok[:, 2:], jnp.zeros_like(skip_ok[:, :2])], axis=1
     )
 
-    if use_kernels:
-        from ..ops.ctc_kernel import ctc_lattice_backward
-
-        return ctc_lattice_backward(
-            lp,
-            jnp.where(skip_fwd, 0.0, _NEG),
-            jnp.where(valid_pos, 0.0, _NEG),
-            bT,
-            input_lengths,
-        )
-
     def step(carry, t):
         b = carry
         msg = b + lp[:, t + 1]  # score of being at position s at t+1
@@ -299,8 +248,7 @@ def _ctc_ll(log_probs, targets, input_lengths, target_lengths, blank_id):
     The VJP is the classic closed form — the lattice posterior
     ``exp(α + β − ll)`` scattered back onto the vocabulary by the
     expanded labels — assembled from the α/β tables (one backward pass)
-    instead of autodiff through the forward scan. This is what lets the
-    Pallas lattice kernels carry training too.
+    instead of autodiff through the forward scan.
     """
     _, ll = ctc_forward_algorithm(
         log_probs, targets, input_lengths, target_lengths, blank_id
@@ -348,9 +296,9 @@ def ctc_loss(
     blank_id: int = 0,
     reduction: str = "mean",
 ) -> jax.Array:
-    """Differentiable CTC loss — our own lattice scan (Pallas banded
-    kernels on TPU), not a delegate to an external kernel (the
-    reference wraps ``nn.CTCLoss``, ``ctc.py:283``). Gradients come
+    """Differentiable CTC loss — our own lattice scan, not a delegate to
+    an external kernel (the reference wraps ``nn.CTCLoss``,
+    ``ctc.py:283``). Gradients come
     from the closed-form posterior VJP of :func:`_ctc_ll`.
     """
     ll = _ctc_ll(
@@ -377,38 +325,14 @@ def ctc_viterbi_alignment(
     likely frame-level label sequence consistent with the target.
     Frames beyond ``input_lengths`` repeat the final label.
     """
-    from ..ops.ctc_kernel import (
-        ctc_viterbi_kernel_supported,
-        ctc_viterbi_wide_supported,
-    )
-
-    T, B, _C = log_probs.shape
-    U = targets.shape[1]
-    S = 2 * U + 1
-    # Kernel choice evaluated OUTSIDE the jit (static arg), so the
-    # PYTORCH_HMM_TPU_NO_PALLAS toggle stays live at call time — same
-    # contract as _ctc_forward_impl.
-    use_kernel = (
-        _use_ctc_kernels(S, B) and ctc_viterbi_kernel_supported(T, B, S)
-    )
-    # Beyond the whole-resident kernel's envelope: the streaming wide
-    # pair (S <= 2048, T bounded only by HBM) — the XLA scan fallback
-    # measured ~1.5 us/frame-pair at the S=2001 bench shape.
-    use_wide = (
-        not use_kernel
-        and _use_ctc_kernels(S, B)
-        and ctc_viterbi_wide_supported(T, B, S)
-    )
     return _ctc_viterbi_impl(
-        log_probs, targets, input_lengths, target_lengths,
-        blank_id=blank_id, use_kernel=use_kernel, use_wide=use_wide,
+        log_probs, targets, input_lengths, target_lengths, blank_id=blank_id
     )
 
 
-@partial(jax.jit, static_argnames=("blank_id", "use_kernel", "use_wide"))
+@partial(jax.jit, static_argnames=("blank_id",))
 def _ctc_viterbi_impl(
-    log_probs, targets, input_lengths, target_lengths,
-    blank_id: int, use_kernel: bool, use_wide: bool = False,
+    log_probs, targets, input_lengths, target_lengths, blank_id: int
 ) -> Tuple[jax.Array, jax.Array]:
     T, B, C = log_probs.shape
     expanded = expand_targets_with_blank(targets, blank_id)
@@ -423,25 +347,6 @@ def _ctc_viterbi_impl(
     a0 = a0.at[:, 0].set(lp[:, 0, 0])
     a0 = a0.at[:, 1].set(jnp.where(target_lengths > 0, lp[:, 0, 1], _NEG))
     a0 = jnp.where(valid_pos, a0, _NEG)
-
-    if use_kernel or use_wide:
-        # Single-program Pallas trellis + in-kernel backtrace
-        # (measured 1.18 ms -> ~0.2 ms at B=16 T=500 U=50 on v5e-1);
-        # the streaming wide pair covers S up to 2048 at any T.
-        from ..ops.ctc_kernel import (
-            ctc_lattice_viterbi,
-            ctc_lattice_viterbi_wide,
-        )
-
-        fn = ctc_lattice_viterbi_wide if use_wide else ctc_lattice_viterbi
-        skip_add = jnp.where(skip_ok, 0.0, _NEG)
-        vmask = jnp.where(valid_pos, 0.0, _NEG)
-        positions, score = fn(
-            lp, skip_add, vmask, a0, input_lengths,
-            2 * target_lengths, jnp.maximum(2 * target_lengths - 1, 0),
-        )
-        alignment = _tokens_at(expanded, positions)
-        return alignment, score
 
     def step(carry, t):
         d = carry
@@ -479,7 +384,7 @@ def _ctc_viterbi_impl(
     # processing the move into frame i+1); the final carry is frame 0's
     # position. Prepend it — appending last_pos instead (as this code
     # once did) shifts the whole alignment one frame late and loses
-    # frame 0 (bug found by the Pallas kernel's exact-parity test).
+    # frame 0.
     first_pos, positions = jax.lax.scan(
         back, last_pos, choices, reverse=True
     )
@@ -541,7 +446,7 @@ def ctc_decode_sequence(sequence: jax.Array, blank_id: int = 0) -> jax.Array:
 # Aligner modules
 # ---------------------------------------------------------------------------
 
-class CTCAligner(nnx.Module):
+class CTCAligner:
     """CTC loss / decode / forced alignment (``ctc.py:259-381``)."""
 
     def __init__(

@@ -16,7 +16,7 @@ the whole batch:
   fixed-width streaming beam (``streaming.py``).
 
 Both return padded ``(tokens (B, Lmax), lengths (B,))`` device arrays —
-the TPU-native shape contract; list-of-ragged views are a host-side
+the static-shape contract; list-of-ragged views are a host-side
 convenience at the API boundary (``CTCAligner.decode``).
 """
 

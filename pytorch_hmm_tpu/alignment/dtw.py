@@ -4,7 +4,7 @@ Parity target: reference ``alignment/dtw.py`` (distance matrices, DTW
 cost/path with three step patterns, ``DTWAligner``/``ConstrainedDTWAligner``
 modules, soft-DTW, phoneme-audio alignment helpers).
 
-TPU-first design: the DTW recurrence has a diagonal wavefront — every
+Design: the DTW recurrence has a diagonal wavefront — every
 cell on anti-diagonal ``k = i + j`` depends only on diagonals ``k-1`` and
 ``k-2``. The DP is a single ``lax.scan`` over ``N+M-1`` diagonals carrying
 two fixed-length diagonal buffers, with all cells of a diagonal updated in
@@ -34,7 +34,6 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
 
 __all__ = [
     "compute_distance_matrix",
@@ -57,8 +56,7 @@ def compute_distance_matrix(
     x: jax.Array, y: jax.Array, distance_fn: str = "euclidean"
 ) -> jax.Array:
     """Pairwise distances ``(N, M)`` between ``x (N, D)`` and ``y (M, D)``
-    (``dtw.py:8-44``). All three metrics are expressed through MXU matmuls
-    where possible."""
+    (``dtw.py:8-44``). Euclidean and cosine distances are matmuls."""
     if distance_fn == "euclidean":
         # ||a-b||² = ||a||² + ||b||² - 2ab — one matmul + rank-1 terms.
         x2 = jnp.sum(x * x, axis=-1)[:, None]
@@ -152,24 +150,12 @@ def compute_dtw_path(
 
     Returns ``(path_i, path_j, cost_matrix)`` with the path trimmed to its
     true length (host-side; use :func:`dtw_path_padded` for fully-jitted
-    pipelines — it also dispatches to the Pallas kernel on TPU).
+    pipelines).
     """
     cost, choices = _dtw_wavefront(distance_matrix, step_pattern)
     pi, pj, length = _backtrace(choices)
     n_pad = pi.shape[0] - int(length)
     return pi[n_pad:], pj[n_pad:], cost
-
-
-def _use_dtw_kernel(n: int, m: int) -> bool:
-    import os
-
-    from ..ops.dtw import pallas_dtw_supported
-
-    return (
-        os.environ.get("PYTORCH_HMM_TPU_NO_PALLAS") != "1"
-        and jax.default_backend() == "tpu"
-        and pallas_dtw_supported(n, m)
-    )
 
 
 def dtw_path_padded(
@@ -178,15 +164,8 @@ def dtw_path_padded(
     """Jit-composable DTW: ``(path_i, path_j, length, final_cost)``.
 
     The paths have fixed length N+M-1 with the leading entries frozen at
-    (0, 0); the true path occupies the last ``length`` entries. On TPU
-    this runs the single-program Pallas wavefront+backtrace kernel
-    (``ops/dtw.py``, ~50x the XLA scan at 500x500); elsewhere the XLA
-    anti-diagonal scan. Outputs are bit-identical on both paths.
+    (0, 0); the true path occupies the last ``length`` entries.
     """
-    if _use_dtw_kernel(*dist.shape):
-        from ..ops.dtw import pallas_dtw
-
-        return pallas_dtw(dist, step_pattern)
     cost, choices = _dtw_wavefront(dist, step_pattern)
     pi, pj, length = _backtrace(choices)
     return pi, pj, length, cost[-1, -1]
@@ -200,10 +179,6 @@ def dtw_distance(
 ) -> jax.Array:
     """Scalar DTW distance (``dtw.py:155-176``)."""
     dist = compute_distance_matrix(x, y, distance_fn)
-    if _use_dtw_kernel(*dist.shape):
-        from ..ops.dtw import pallas_dtw
-
-        return pallas_dtw(dist, step_pattern)[3]
     cost, _ = _dtw_wavefront(dist, step_pattern)
     return cost[-1, -1]
 
@@ -291,7 +266,7 @@ def soft_dtw_alignment(
 # Aligner modules
 # ---------------------------------------------------------------------------
 
-class DTWAligner(nnx.Module):
+class DTWAligner:
     """DTW aligner module (``dtw.py:205-305``). Batched inputs are
     vmapped over the batch (the reference loops in Python)."""
 

@@ -22,16 +22,8 @@ import math
 from typing import Any, Dict, Optional
 
 import jax
-from flax import nnx
 
 from . import precision
-from .models import HSMMLayer, MixtureGaussianHMMLayer
-from .streaming import StreamingHMMProcessor
-from .utils import (
-    create_left_to_right_matrix,
-    create_skip_state_matrix,
-    create_transition_matrix,
-)
 
 __all__ = [
     "Config",
@@ -74,9 +66,9 @@ class Config:
         self.EPS = EPS
         self.LOG_EPS = LOG_EPS
         self.DEFAULT_CHUNK_SIZE = DEFAULT_CHUNK_SIZE
-        # The TPU build has no hard sequence cap (long sequences shard
-        # over the time axis); this mirrors the reference field for
-        # compatibility and is advisory only.
+        # There is no hard sequence cap (long sequences shard over the
+        # time axis); this mirrors the reference field for compatibility
+        # and is advisory only.
         self.MAX_SEQUENCE_LENGTH = MAX_SEQUENCE_LENGTH
         if USE_MIXED_PRECISION is not None:
             precision.set_mixed_precision(USE_MIXED_PRECISION)
@@ -140,7 +132,13 @@ def create_speech_hmm(
     """Speech-optimized model factory (``__init__.py:229-274``).
 
     ``model_type``: ``mixture_gaussian`` | ``hsmm`` | ``streaming``.
+    The models are flax ``nnx`` modules.
     """
+    from flax import nnx
+
+    from .models import HSMMLayer, MixtureGaussianHMMLayer
+    from .streaming import StreamingHMMProcessor
+
     rngs = rngs or nnx.Rngs(0)
     if model_type == "mixture_gaussian":
         kwargs.setdefault("num_components", 3)
@@ -189,6 +187,12 @@ def create_korean_tts_hmm(phoneme_list: Optional[list] = None, **kwargs):
 def get_speech_transitions(num_states: int, speech_type: str = "normal"):
     """Pre-configured speech transition matrices (``__init__.py:303-339``):
     ``normal`` | ``fast`` | ``slow`` | ``emotional``."""
+    from .utils import (
+        create_left_to_right_matrix,
+        create_skip_state_matrix,
+        create_transition_matrix,
+    )
+
     if speech_type == "normal":
         return create_left_to_right_matrix(num_states, self_loop_prob=0.7)
     if speech_type == "fast":
@@ -206,11 +210,16 @@ def get_speech_transitions(num_states: int, speech_type: str = "normal"):
 
 
 class ModelFactory:
-    """Common task-tuned configurations (``__init__.py:342-376``)."""
+    """Common task-tuned configurations (``__init__.py:342-376``); the
+    models are flax ``nnx`` modules."""
 
     @staticmethod
     def create_asr_model(vocabulary_size: int, acoustic_dim: int = 80,
                          *, rngs: Optional[nnx.Rngs] = None):
+        from flax import nnx
+
+        from .models import MixtureGaussianHMMLayer
+
         return MixtureGaussianHMMLayer(
             num_states=vocabulary_size,
             feature_dim=acoustic_dim,
@@ -223,6 +232,10 @@ class ModelFactory:
     @staticmethod
     def create_tts_model(num_phonemes: int, mel_dim: int = 80,
                          *, rngs: Optional[nnx.Rngs] = None):
+        from flax import nnx
+
+        from .models import HSMMLayer
+
         return HSMMLayer(
             num_states=num_phonemes,
             feature_dim=mel_dim,
@@ -235,6 +248,10 @@ class ModelFactory:
     @staticmethod
     def create_realtime_model(num_states: int, feature_dim: int = 80,
                               *, rngs: Optional[nnx.Rngs] = None):
+        from flax import nnx
+
+        from .streaming import StreamingHMMProcessor
+
         return StreamingHMMProcessor(
             num_states=num_states,
             feature_dim=feature_dim,
@@ -253,7 +270,7 @@ def get_device_info() -> Dict[str, Any]:
         "platform": jax.default_backend(),
         "device_count": len(devices),
         "devices": [str(d) for d in devices],
-        "tpu_available": any(d.platform == "tpu" for d in devices),
+        "gpu_available": any(d.platform == "gpu" for d in devices),
     }
     try:
         info["local_device_count"] = jax.local_device_count()
@@ -262,39 +279,40 @@ def get_device_info() -> Dict[str, Any]:
     return info
 
 
-def run_quick_test() -> bool:
+def run_quick_test() -> None:
     """End-to-end smoke test over the main model families
-    (``__init__.py:398-429``)."""
+    (``__init__.py:398-429``). Raises on the first failure, so the
+    ``pytorch-hmm-tpu-test`` console script exits non-zero then and 0 on
+    success. Needs flax."""
+    from flax import nnx
+
+    from .hmm import HMM
+    from .models import HSMMLayer, MixtureGaussianHMMLayer
+    from .streaming import StreamingHMMProcessor
+    from .utils import create_left_to_right_matrix
+
     print("🧪 Running pytorch_hmm_tpu quick test...")
-    try:
-        from .hmm import HMM
+    hmm = HMM(create_left_to_right_matrix(5))
+    obs = jax.random.uniform(jax.random.PRNGKey(0), (20, 5))
+    hmm.viterbi_decode(obs)
+    print("✅ Basic HMM: OK")
 
-        hmm = HMM(create_left_to_right_matrix(5))
-        obs = jax.random.uniform(jax.random.PRNGKey(0), (20, 5))
-        hmm.viterbi_decode(obs)
-        print("✅ Basic HMM: OK")
+    model = MixtureGaussianHMMLayer(5, 40, 2, rngs=nnx.Rngs(0))
+    data = jax.random.normal(jax.random.PRNGKey(1), (2, 20, 40))
+    model(data)
+    print("✅ Mixture Gaussian HMM: OK")
 
-        model = MixtureGaussianHMMLayer(5, 40, 2, rngs=nnx.Rngs(0))
-        data = jax.random.normal(jax.random.PRNGKey(1), (2, 20, 40))
-        model(data)
-        print("✅ Mixture Gaussian HMM: OK")
+    hsmm = HSMMLayer(3, 40, rngs=nnx.Rngs(0))
+    hsmm.generate_sequence(30)
+    print("✅ HSMM: OK")
 
-        hsmm = HSMMLayer(3, 40, rngs=nnx.Rngs(0))
-        hsmm.generate_sequence(30)
-        print("✅ HSMM: OK")
-
-        stream = StreamingHMMProcessor(
-            5, 40, chunk_size=10, lookahead_frames=0, rngs=nnx.Rngs(0)
-        )
-        chunk = jax.random.normal(jax.random.PRNGKey(2), (10, 40))
-        stream.process_chunk(chunk)
-        print("✅ Streaming HMM: OK")
-
-        print("🎉 All tests passed!")
-        return True
-    except Exception as e:  # pragma: no cover - reporting path
-        print(f"❌ Test failed: {e}")
-        return False
+    stream = StreamingHMMProcessor(
+        5, 40, chunk_size=10, lookahead_frames=0, rngs=nnx.Rngs(0)
+    )
+    chunk = jax.random.normal(jax.random.PRNGKey(2), (10, 40))
+    stream.process_chunk(chunk)
+    print("✅ Streaming HMM: OK")
+    print("🎉 All tests passed!")
 
 
 def check_optional_dependencies() -> Dict[str, Optional[str]]:
@@ -313,12 +331,7 @@ def auto_configure() -> Dict[str, Any]:
     """Size config by the detected platform (``__init__.py:457-477``) —
     explicit call, never run at import time."""
     info = get_device_info()
-    if info["tpu_available"]:
-        config.set_device("tpu")
-        config.MAX_SEQUENCE_LENGTH = 1_000_000
-        config.DEFAULT_CHUNK_SIZE = 8192
-        print(f"🚀 Configured for TPU ({info['device_count']} device(s))")
-    elif info["platform"] == "gpu":
+    if info["gpu_available"]:
         config.set_device("gpu")
         config.MAX_SEQUENCE_LENGTH = 100_000
         config.DEFAULT_CHUNK_SIZE = 2000

@@ -13,6 +13,9 @@ session state lives only in memory. Here checkpointing is first-class:
   buffer, greedy/beam carries, frame counters) so a live session can be
   resumed after preemption — the exact "restart-from-checkpoint"
   behavior multi-host runs need (SURVEY.md §5).
+
+orbax and flax are imported when a model checkpoint is saved or loaded,
+not with this module.
 """
 
 from __future__ import annotations
@@ -20,10 +23,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional
 
-import jax
 import numpy as np
-import orbax.checkpoint as ocp
-from flax import nnx
 
 __all__ = [
     "save_checkpoint",
@@ -33,7 +33,9 @@ __all__ = [
 ]
 
 
-def _checkpointer() -> ocp.StandardCheckpointer:
+def _checkpointer():
+    import orbax.checkpoint as ocp
+
     return ocp.StandardCheckpointer()
 
 
@@ -47,6 +49,8 @@ def save_checkpoint(
     ``path`` is created (or replaced) as an orbax checkpoint directory.
     Returns the absolute path.
     """
+    from flax import nnx
+
     path = os.path.abspath(path)
     _, state = nnx.split(model)
     payload = {"model": nnx.to_pure_dict(state), "extras": extras or {}}
@@ -65,6 +69,8 @@ def load_checkpoint(
 
     Returns the model, or ``(model, extras)`` with ``with_extras=True``.
     """
+    from flax import nnx
+
     path = os.path.abspath(path)
     graphdef, state = nnx.split(model)
     ckptr = _checkpointer()

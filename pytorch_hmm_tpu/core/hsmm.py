@@ -227,7 +227,6 @@ def _hsmm_scan(log_obs, log_a, log_pi, log_dur, viterbi: bool):
         return (mu_buf, c_buf, c_t), (val, dstar_t, phi_t)
 
     xs = (log_obs.swapaxes(0, 1), jnp.arange(T))
-    # unroll amortizes the TPU while-loop overhead across fused steps.
     _, (vals, dstars, phis) = jax.lax.scan(
         step, (mu0, c0, crun0), xs, unroll=4
     )
@@ -236,31 +235,6 @@ def _hsmm_scan(log_obs, log_a, log_pi, log_dur, viterbi: bool):
         dstars.swapaxes(0, 1),
         phis.swapaxes(0, 1),
     )
-
-
-def _cumsum_time(x: jax.Array) -> jax.Array:
-    """Inclusive cumsum over axis 1 of ``(B, T, S)``.
-
-    XLA's TPU lowering of ``jnp.cumsum`` costs ~0.5 ms at (32, 1000, 10)
-    — more than an entire Pallas segment-DP scan. On TPU this computes
-    the same prefix sums as a two-level blocked scan whose within-block
-    step is one triangular matmul on the MXU (linear in T, ~0.05 ms at
-    the same shape); elsewhere it stays ``jnp.cumsum``.
-    """
-    if jax.default_backend() != "tpu":
-        return jnp.cumsum(x, axis=1)
-    B, T, S = x.shape
-    blk = min(256, max(8, T))
-    Tp = -(-T // blk) * blk
-    xp = jnp.pad(x, ((0, 0), (0, Tp - T), (0, 0)))
-    xb = xp.reshape(B, Tp // blk, blk, S)
-    tri = jnp.tril(jnp.ones((blk, blk), x.dtype))
-    within = jnp.einsum(
-        "ut,bkts->bkus", tri, xb, precision=jax.lax.Precision.HIGHEST
-    )
-    totals = within[:, :, -1]                       # (B, K, S) block sums
-    offs = jnp.cumsum(totals, axis=1) - totals      # exclusive, K ≤ T/8
-    return (within + offs[:, :, None]).reshape(B, Tp, S)[:, :T]
 
 
 def _entry_scores(log_alpha, log_a, log_pi):
@@ -319,9 +293,9 @@ def hsmm_grads_from_tables(log_obs, log_a, log_pi, log_dur, log_alpha,
     if valid is not None:
         seg_end = jnp.where(valid, seg_end, 0.0)
         seg_start = jnp.where(valid, seg_start, 0.0)
-    gamma = _cumsum_time(seg_start) - jnp.concatenate(
+    gamma = jnp.cumsum(seg_start, axis=1) - jnp.concatenate(
         [jnp.zeros_like(seg_end[:, :1]),
-         _cumsum_time(seg_end)[:, :-1]],
+         jnp.cumsum(seg_end, axis=1)[:, :-1]],
         axis=1,
     )
     gamma = jnp.clip(gamma, 0.0, 1.0)
@@ -352,9 +326,9 @@ def hsmm_grads_from_tables(log_obs, log_a, log_pi, log_dur, log_alpha,
     # Expected segments of state s with duration d: start u, end
     # u+d-1 <= final valid frame. E(s, u..u+d-1) = C(u+d-1) - C(u-1).
     # Per-duration shifts are uniform, so each d is a pair of STATIC
-    # slices (gathers with (B,T,S,D) index tensors are far slower on
-    # TPU than D fused elementwise passes).
-    C = _cumsum_time(log_obs)                             # (B, T, S)
+    # slices (gathers with (B,T,S,D) index tensors cost more than D fused
+    # elementwise passes).
+    C = jnp.cumsum(log_obs, axis=1)                             # (B, T, S)
     c_before = jnp.concatenate(
         [jnp.zeros_like(C[:, :1]), C[:, :-1]], axis=1
     )                                                     # C(u-1)
@@ -433,9 +407,8 @@ def hsmm_log_z(log_obs, log_a, log_pi, log_dur, lengths=None):
     """Sequence log-likelihood ``(B,)`` over all segmentations,
     differentiable via closed-form posterior-expectation cotangents
     (one backward scan + table algebra) instead of autodiff through the
-    forward scan. Same values and gradients (≤2e-5 off autodiff on CPU,
-    ≤5e-4 on TPU at B=32 T=1000); comparable wall-clock on TPU, but the
-    residuals are the (B, T, S) alpha table (~1 MB at the benchmark
+    forward scan. Same values and gradients (≤2e-5 off autodiff on CPU),
+    but the residuals are the (B, T, S) alpha table (~1 MB at the benchmark
     shape) instead of the scan's per-step intermediates (~100× larger),
     so batch·length can scale well past the autodiff memory cliff.
     Gradients double as HSMM E-step statistics (``d/d log_dur`` =
@@ -592,8 +565,8 @@ def hsmm_posteriors_from_tables(
         seg_end = jnp.where(valid, seg_end, 0.0)
         seg_start = jnp.where(valid, seg_start, 0.0)
 
-    gamma = _cumsum_time(seg_start) - jnp.concatenate(
-        [jnp.zeros_like(seg_end[:, :1]), _cumsum_time(seg_end)[:, :-1]],
+    gamma = jnp.cumsum(seg_start, axis=1) - jnp.concatenate(
+        [jnp.zeros_like(seg_end[:, :1]), jnp.cumsum(seg_end, axis=1)[:, :-1]],
         axis=1,
     )
     gamma = jnp.clip(gamma, 0.0, 1.0)

@@ -13,9 +13,9 @@ The reference implementation (pytorch_hmm: ``hmm.py:95-101``,
 ``hmm.py:162-168``, ``mixture_gaussian.py:315-324``, ``hsmm.py:277-316``)
 re-implements these contractions inline four separate times inside Python
 ``for t in range(T)`` loops. Here they are factored into a tiny, fully
-vectorized primitive layer that every model shares, and that maps onto the
-TPU VPU (elementwise + reductions) or, for the associative-scan time
-parallelization, onto batched ``(K, K)`` contractions.
+vectorized primitive layer that every model shares: elementwise work and
+reductions, or, for the associative-scan time parallelization, batched
+``(K, K)`` contractions.
 
 Conventions
 -----------
@@ -34,6 +34,12 @@ import jax.numpy as jnp
 # reference's `log(P + 1e-8)` epsilon (hmm.py:42) without biasing feasible
 # transitions.
 LOG_ZERO = -1e30
+
+# Time steps per trip of the XLA loops in ``core`` (``lax.scan`` unroll).
+# Chosen on the GPU among 1, 8, 16, 32 and 64 (``chip_smoke.py`` phase 6,
+# PERF.md): 32 was best for the likelihood + gradient step and within 6%
+# of 64 for decode.
+SCAN_UNROLL = 32
 
 
 def logsumexp(x: jax.Array, axis=None, keepdims: bool = False) -> jax.Array:

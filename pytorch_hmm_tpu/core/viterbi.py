@@ -23,18 +23,19 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from .semiring import max_matmul
+from .semiring import SCAN_UNROLL, max_matmul
 
 __all__ = ["viterbi", "viterbi_associative"]
 
 
-@partial(jax.jit, static_argnames=("return_score",))
+@partial(jax.jit, static_argnames=("return_score", "unroll"))
 def viterbi(
     log_obs: jax.Array,
     log_a: jax.Array,
     log_pi: jax.Array,
     lengths: Optional[jax.Array] = None,
     return_score: bool = True,
+    unroll: int = SCAN_UNROLL,
 ):
     """Most-likely state path.
 
@@ -46,6 +47,7 @@ def viterbi(
         lengths: optional ``(B,)`` valid lengths; the path for padded frames
             repeats the final valid state.
         return_score: also return the path log-score.
+        unroll: time steps per trip of the XLA loops.
 
     Returns:
         ``states (B, T) int32`` and, if requested, ``score (B,)`` — the log
@@ -77,19 +79,16 @@ def viterbi(
 
     xs = (log_obs[:, 1:].swapaxes(0, 1), log_a[:, 1:].swapaxes(0, 1)) if tv \
         else log_obs[:, 1:].swapaxes(0, 1)
-    # unroll amortizes the TPU while-loop overhead (~2.3 us/iter)
-    # across several fused steps.
     (delta_T, _), psis = jax.lax.scan(
-        fwd, (delta0, jnp.int32(1)), xs, unroll=16
+        fwd, (delta0, jnp.int32(1)), xs, unroll=unroll
     )
     # psis[t] are the backpointers for step t+1 (into frame t+1), t in [0, T-2].
 
     last_state = jnp.argmax(delta_T, axis=-1).astype(jnp.int32)
     score = jnp.max(delta_T, axis=-1)
 
-    # Backtrace without per-step lane gathers: carry the state as a
-    # one-hot row and select the backpointer by multiply-reduce (~2x
-    # faster than take_along_axis per step on TPU; indices stay exact in
+    # Backtrace without per-step gathers: carry the state as a one-hot row
+    # and select the backpointer by multiply-reduce (indices stay exact in
     # f32 for K <= 2^24).
     iota = jnp.arange(K, dtype=jnp.float32)[None, :]
     oh0 = (iota == last_state[:, None].astype(jnp.float32)).astype(
@@ -101,7 +100,9 @@ def viterbi(
                        keepdims=True)
         return (iota == prev).astype(jnp.float32), prev[:, 0]
 
-    _, prev_states = jax.lax.scan(back, oh0, psis, reverse=True, unroll=16)
+    _, prev_states = jax.lax.scan(
+        back, oh0, psis, reverse=True, unroll=unroll
+    )
     states = jnp.concatenate(
         [prev_states.swapaxes(0, 1).astype(jnp.int32),
          last_state[:, None]],
@@ -141,8 +142,8 @@ def viterbi_associative(
        backpointer row is a function K→K; suffix compositions evaluated
        at the final argmax give the whole path.
 
-    Best for small K and long T where the sequential scan is
-    loop-overhead-bound (~2.3 µs/step on TPU). Static transitions only.
+    For small K and long T, where the sequential scan is bound by its
+    per-step loop overhead. Static transitions only.
     ``lengths`` (B,) marks ragged batches: steps into padded frames are
     tropical identity matrices, freezing the trellis, so paths match the
     unpadded per-sequence result (padding repeats the final valid state).
@@ -212,13 +213,13 @@ def viterbi_blocked(
     unroll: int = 8,
     lengths: Optional[jax.Array] = None,
 ):
-    """Single-chip time-block-parallel Viterbi.
+    """Single-device time-block-parallel Viterbi.
 
-    The sequential scan is latency-bound at ~1.5 µs per step on TPU
-    regardless of the step body, so the wall clock is set by the chain
-    *length*. This runs the same block-parallel decomposition as
-    ``parallel.sharded_viterbi`` but with the P blocks vectorized into
-    the batch dimension of one device: three chains of length T/P
+    The sequential scan is latency-bound per step regardless of the step
+    body, so the wall clock is set by the chain *length*. This runs the
+    same block-parallel decomposition as ``parallel.sharded_viterbi`` but
+    with the P blocks vectorized into the batch dimension of one device:
+    three chains of length T/P
     (operator fold, rescan, hypothesis backtrace) replace two chains of
     length T — a ~P/3 wall-clock win for small K where the extra
     O(K³/K²) fold work stays cheap.

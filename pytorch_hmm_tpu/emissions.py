@@ -3,21 +3,21 @@
 Every emission model here is a pure function ``(params, obs) → (B, T, K)
 log-probs`` feeding the shared DP kernels (SURVEY.md §7 principle 2).
 
-TPU design note: the reference scores Gaussians by materializing a
+Design note: the reference scores Gaussians by materializing a
 ``(B, T, S, C, D)`` difference tensor (``mixture_gaussian.py:175``,
 ``hmm_layer.py:270-323``) — a pure HBM-bandwidth burn. Here the quadratic
 form is expanded so scoring becomes two ``(B·T, D) × (D, S·C)`` matmuls::
 
     (x-μ)ᵀ diag(1/σ²) (x-μ) = x²·(1/σ²) − 2x·(μ/σ²) + Σ μ²/σ²
 
-which XLA tiles straight onto the MXU; the per-state/component terms are
+which XLA hands to the matmul units; the per-state/component terms are
 rank-1 corrections. Full covariance goes through precomputed inverse
 Cholesky factors with time-chunked evaluation to bound memory.
 
 Mixed precision: every function takes ``compute_dtype`` (default
 ``None`` = resolve from the live ``USE_MIXED_PRECISION`` flag, see
-``precision.py``). The big contractions run at that dtype on the MXU
-with float32 accumulation; returned log-probs are always float32 so the
+``precision.py``). The big contractions run at that precision with
+float32 accumulation; returned log-probs are always float32 so the
 DP recursions never carry bf16.
 """
 
@@ -72,38 +72,9 @@ def diag_gaussian_log_probs(
     mm = jnp.sum(means * means * inv_var, axis=-1)  # (K,)
     log_norm = -0.5 * (D * _LOG_2PI + jnp.sum(log_vars, axis=-1))
 
-    # TPU: a small Pallas kernel squares x in registers and applies the
-    # expansion as two resident-weight dots — ONE observation read. The
-    # XLA fallback packs [x², x, 1] @ W into one augmented matmul, but
-    # XLA materializes the (B, T, 2D+1) augmented operand through HBM
-    # (~41 MB extra at the flagship shape: measured 0.070 ms vs the
-    # kernel's ~0.03 against a ~0.025 data floor). x² is squared in f32
-    # BEFORE any bf16 pass either way (squaring rounded values doubles
+    # One augmented contraction [x², x, 1] @ W. x² is squared in f32
+    # before any reduced-precision pass (squaring rounded values doubles
     # the error).
-    if (
-        obs.ndim == 3 and means.ndim == 2
-        and jax.default_backend() == "tpu"
-    ):
-        from .ops import _pallas_opt_out
-        from .ops.emit import diag_quadratic, diag_quadratic_supported
-        from .precision import compute_dtype as _resolve_dtype
-
-        if not _pallas_opt_out() and diag_quadratic_supported(
-            D, means.shape[0]
-        ):
-            # Mirror mxu_einsum's policy: bf16-pass multiplies when the
-            # mixed flag allows, true f32 otherwise.
-            prec = (
-                jax.lax.Precision.DEFAULT
-                if _resolve_dtype(compute_dtype) == jnp.bfloat16
-                else jax.lax.Precision.HIGHEST
-            )
-            mahal = diag_quadratic(
-                obs, inv_var.T, (-2.0 * means * inv_var).T, mm,
-                precision=prec,
-            )
-            return log_norm - 0.5 * mahal
-
     W = jnp.concatenate(
         [inv_var, -2.0 * means * inv_var, mm[..., None]], axis=-1
     )  # (K, 2D+1)
@@ -138,13 +109,10 @@ def fullcov_prepare(means: jax.Array, chol: jax.Array) -> dict:
     ``MixtureGaussianHMMLayer.make_decoder``.
 
     The Mahalanobis term is the expanded precision form
-    ``xᵀPx − 2x·(Pμ̃) + μ̃ᵀPμ̃`` over centered coordinates. (An augmented
-    ``[x, 1] P̃ [x; 1]`` single-einsum packing was tried and measured 6×
-    SLOWER on v5e — the odd D+1 contraction breaks XLA's fusion of the
-    three-operand quadratic; the xq matvec is nearly free next to it.)
-    Centering on the mean of the means keeps the expansion
-    O(Mahalanobis distance) for un-centered features — shifting x and μ
-    by the same constant is exact.
+    ``xᵀPx − 2x·(Pμ̃) + μ̃ᵀPμ̃`` over centered coordinates. Centering
+    on the mean of the means keeps the expansion O(Mahalanobis distance)
+    for un-centered features — shifting x and μ by the same constant is
+    exact.
 
     Returns ``{"prec": (K, D, D), "pm": (K, D), "mm": (K,),
     "center": (D,), "log_norm": (K,)}``.
@@ -174,11 +142,9 @@ def full_gaussian_log_probs_prepared(
     """Full-covariance scores from :func:`fullcov_prepare` tables.
 
     The per-call cost is the three-operand ``xPx`` einsum plus a thin
-    matvec and the centering subtract — ~0.15 ms at (32, 1000, 48, 80)
-    on v5e. ``time_chunk`` matters: XLA's contraction strategy for the
-    quadratic degrades sharply above ~256 rows of τ (measured 0.18 ms at
-    τ=128 vs 0.82 ms single-chunk at this shape) — the default is the
-    measured optimum.
+    matvec and the centering subtract. ``time_chunk`` bounds the rows of
+    τ each contraction sees, and with them whatever intermediate XLA
+    picks for the quadratic.
     """
     return _fullcov_scored_prepared(
         obs, prep, time_chunk, compute_dtype, mixture=None
@@ -332,8 +298,7 @@ def tril_from_flat(flat: jax.Array, d: int) -> jax.Array:
     raw-diagonal Cholesky params (``mixture_gaussian.py:271-288``) can go
     non-positive under training).
 
-    Built by a static GATHER (take) instead of a scatter: TPU scatters
-    at this shape measured ~80 µs per call; the gather is ~free.
+    Built by a static GATHER (take) instead of a scatter.
     """
     # idx[r, c] = flat position of (r, c) for c <= r, else the padded
     # zero slot appended at the end.
@@ -357,9 +322,8 @@ def tril_inverse(L: jax.Array) -> jax.Array:
     ``X ← X (2I − L X)`` doubles the number of correct Neumann terms per
     step, and for a triangular matrix the series is finite — ⌈log₂ d⌉
     iterations give the EXACT inverse (in exact arithmetic). Each step
-    is two batched MXU matmuls, so the whole inverse is ~15 matmuls —
-    measured ~6× faster than the batched ``solve_triangular`` lowering
-    on TPU at (48, 80, 80), which back-substitutes serially.
+    is two batched matmuls, so the whole inverse is ~15 matmuls in place
+    of a batched ``solve_triangular``, which back-substitutes serially.
     """
     d = L.shape[-1]
     eye = jnp.eye(d, dtype=L.dtype)

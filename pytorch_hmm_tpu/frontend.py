@@ -1,16 +1,14 @@
 """On-device audio frontend: raw PCM → log-mel features as jnp ops.
 
-The round-3 end-to-end streaming demo spent ~90% of its per-chunk time
-in the HOST framer (C++ FFT, 0.84 ms per 160 frames) against 0.095 ms
-of TPU beam decode. Here framing runs ON the device, inside the same
-jit as the decoder, so audio-in→states-out is ONE dispatch:
+A host framer (C++ FFT) costs a host round trip per chunk before the
+device can decode. Here framing runs ON the device, inside the same jit
+as the decoder, so audio-in→states-out is ONE dispatch:
 
 * windowing is a strided gather over the pre-emphasized extended chunk;
 * the 512-point real FFT of each 400-sample frame is TWO matmuls
-  against fixed cos/sin DFT tables — at speech shapes a matmul DFT is
-  the right TPU design (160×400 @ 400×257 lands on the MXU and
-  vectorizes over every frame in the chunk; a serial butterfly chain
-  is latency-bound VPU work);
+  against fixed cos/sin DFT tables — at speech shapes a matmul DFT
+  (160×400 @ 400×257) vectorizes over every frame in the chunk, where a
+  serial butterfly chain is latency-bound;
 * the mel filterbank is one more (257 → n_mels) matmul; power + log
   fuse into it.
 
@@ -126,17 +124,15 @@ def device_frames(
     # Overlapped framing WITHOUT a gather: y[j·hop : j·hop+frame_len]
     # for all j is q full hop-rows plus an r-sample head of the next
     # row (frame_len = q·hop + r), so frames assemble from q+1
-    # CONTIGUOUS slices of the (F+lag, hop) reshape. The obvious
-    # (F, frame_len) advanced-index gather was measured at 0.42 ms per
-    # 160-frame chunk on v5e — 85% of the whole audio→states path;
-    # slices+concat lower to plain windowed copies (~µs).
+    # CONTIGUOUS slices of the (F+lag, hop) reshape: plain windowed
+    # copies in place of an (F, frame_len) advanced-index gather.
     rows = y.reshape(-1, hop)
     q, r = divmod(frame_len, hop)
     parts = [rows[i:F + i] for i in range(q)]
     if r:
         parts.append(rows[q:F + q, :r])
     frames = jnp.concatenate(parts, axis=1) * tables["window"]
-    # Real-input DFT as two MXU matmuls; HIGHEST so the spectrum matches
+    # Real-input DFT as two matmuls; HIGHEST so the spectrum matches
     # the f32 FFT reference (the tables are tiny; the cost is ~µs).
     re = jnp.dot(frames, tables["cos"],
                  precision=jax.lax.Precision.HIGHEST)
@@ -236,7 +232,7 @@ def make_pcm_decode_step(
     Returns ``(step, carry0)`` where ``step(carry, pcm_chunk)`` takes
     ``(F·hop,)`` raw samples and returns ``(carry, states (F,), conf
     (F,), n_valid)`` — the audio-in→states-out path of the streaming
-    demo as a single TPU dispatch (no host framer, no per-stage round
+    demo as a single device dispatch (no host framer, no per-stage round
     trips). Only ``states[:n_valid]`` are meaningful: the first chunk
     yields ``n_valid = F − lag`` states (``lag`` = 2 at the 400/160
     default) because the ``lag`` leading windows would start before the

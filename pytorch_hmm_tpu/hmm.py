@@ -110,7 +110,7 @@ class HMM:
         log_obs = safe_log(obs)
         lengths = None if lengths is None else jnp.asarray(lengths)
         if method == "scan":
-            # TPU: transposed-layout Pallas kernels + conditioned gamma.
+            # The trellis kernel on the GPU, the core scans elsewhere.
             from .ops import auto_forward_backward
 
             log_gamma, log_alpha, log_beta, _ = auto_forward_backward(

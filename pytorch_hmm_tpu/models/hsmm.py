@@ -6,7 +6,7 @@ parameters, diagonal-Gaussian emissions, segment Viterbi, generation) and
 ``hsmm.py:475-590`` (DurationConstrainedHMM: MLP emissions + duration-
 penalized Viterbi).
 
-TPU-first differences:
+Differences from the reference:
 
 * decoding runs on the shared vectorized segment-DP scan
   (``core/hsmm.py``) — batched, O(T·(DS+S²)) — instead of the reference's
@@ -29,9 +29,7 @@ import jax
 import jax.numpy as jnp
 from flax import nnx
 
-from ..ops import auto_hsmm_log_z as hsmm_log_z
-from ..ops import auto_hsmm_posteriors as hsmm_posteriors
-from ..ops import auto_hsmm_viterbi as hsmm_viterbi
+from ..core.hsmm import hsmm_log_z, hsmm_posteriors, hsmm_viterbi
 from ..durations import (
     gamma_duration_log_pmf,
     poisson_duration_log_pmf,

@@ -4,7 +4,7 @@ Parity target: reference ``mixture_gaussian.py:20-382`` (K-state,
 C-component GMM emissions with diag/full/tied/spherical covariances,
 learnable or fixed left-to-right transitions, batched Viterbi decode).
 
-TPU-first differences:
+Differences from the reference:
 
 * emission scoring is matmul-form (see ``emissions.py``) — no
   ``(B, T, S, C, D)`` broadcast (reference ``mixture_gaussian.py:175``);
@@ -12,7 +12,7 @@ TPU-first differences:
   private Viterbi (``mixture_gaussian.py:290-338``);
 * full-covariance Cholesky diagonals are softplus-positive (always PD);
 * a closed-form Baum-Welch ``em_step`` is provided — the reference has no
-  EM at all, but the TPU baseline (BASELINE.json config 2) requires it;
+  EM at all, but BASELINE.json config 2 requires it;
 * no ``max_sequence_length`` warning: long sequences are handled by
   chunked/sharded scans, not capped (SURVEY.md §5 long-context).
 """
@@ -20,16 +20,15 @@ TPU-first differences:
 from __future__ import annotations
 
 import math
-from functools import partial
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 from flax import nnx
 
-from .. import core
 from ..core.semiring import logsumexp, safe_log
 from ..ops import auto_gmm_viterbi, auto_log_likelihood
+from ..em import gmm_em_update
 from ..emissions import (flat_dim, gmm_component_log_probs,
                          gmm_log_probs, tril_from_flat)
 from ..precision import maybe_remat
@@ -44,8 +43,8 @@ class PreparedGMMDecoder:
     Holds only derived arrays; ``__call__`` is one jitted program:
     emission scoring (for full covariance, a single augmented
     quadratic-form einsum over pre-inverted precision matrices) into the
-    shared TPU trellis (``auto_viterbi`` → Pallas ``smallk_viterbi`` at
-    speech shapes). Decodes match ``MixtureGaussianHMMLayer.__call__``
+    shared trellis (``auto_viterbi``: the Viterbi kernel on the GPU).
+    Decodes match ``MixtureGaussianHMMLayer.__call__``
     exactly — both routes share the same emission math and trellis.
     """
 
@@ -207,8 +206,7 @@ class MixtureGaussianHMMLayer(TrainMode):
         """Viterbi decode: ``(decoded_states (B, T), seq_log_probs (B,)|None)``
         (``mixture_gaussian.py:340-365``). ``lengths`` masks ragged batches
         (padded frames repeat each row's final valid state). Every
-        covariance family routes through the TPU fast path
-        (``auto_gmm_viterbi``)."""
+        covariance family routes through ``auto_gmm_viterbi``."""
         log_w = jax.nn.log_softmax(
             self.mixture_weights_logits[...], axis=-1
         )
@@ -318,7 +316,7 @@ class MixtureGaussianHMMLayer(TrainMode):
         — distributed EM, which the reference cannot express at all.
         Shard ``observations`` with ``parallel.shard_batch`` first.
         """
-        (ll, new) = _em_update(
+        (ll, new) = gmm_em_update(
             observations,
             self.means[...],
             self.cov_params[...],
@@ -353,86 +351,3 @@ class MixtureGaussianHMMLayer(TrainMode):
             "memory_efficient": True,
             "max_sequence_length": self.max_sequence_length,
         }
-
-
-@partial(
-    jax.jit,
-    static_argnames=("covariance_type", "learnable_transitions", "mesh"),
-)
-def _em_update(
-    obs: jax.Array,
-    means: jax.Array,
-    cov_params: jax.Array,
-    mixture_logits: jax.Array,
-    log_a: jax.Array,
-    log_pi: jax.Array,
-    covariance_type: str,
-    var_floor: float,
-    learnable_transitions: bool,
-    mesh=None,
-):
-    B, T, D = obs.shape
-    S, C, _ = means.shape
-
-    comp = gmm_component_log_probs(obs, means, cov_params, covariance_type)
-    log_w = jax.nn.log_softmax(mixture_logits, axis=-1)
-    weighted = comp + log_w[None, None]  # (B, T, S, C)
-    log_obs = logsumexp(weighted, axis=-1)  # (B, T, S)
-
-    if mesh is not None:
-        from ..parallel.sharded import sharded_forward_backward
-
-        log_gamma, log_alpha, log_beta, log_z = sharded_forward_backward(
-            log_obs, log_a, log_pi, mesh
-        )
-    else:
-        from ..ops import auto_forward_backward
-
-        log_gamma, log_alpha, log_beta, log_z = auto_forward_backward(
-            log_obs, log_a, log_pi
-        )
-    # Component responsibilities: r = γ_s · p(c | x, s).
-    log_r = log_gamma[..., None] + weighted - log_obs[..., None]
-    r = jnp.exp(log_r)  # (B, T, S, C)
-
-    r_sum = jnp.sum(r, axis=(0, 1)) + 1e-10  # (S, C)
-    new_w = r_sum / jnp.sum(r_sum, axis=-1, keepdims=True)
-    new_means = jnp.einsum("btsc,btd->scd", r, obs) / r_sum[..., None]
-
-    ex2 = jnp.einsum("btsc,btd->scd", r, obs * obs) / r_sum[..., None]
-    var_diag = jnp.maximum(ex2 - new_means**2, var_floor)  # (S, C, D)
-
-    if covariance_type == "diag":
-        new_cov = jnp.log(var_diag)
-    elif covariance_type == "spherical":
-        new_cov = jnp.log(jnp.mean(var_diag, axis=-1))
-    elif covariance_type == "tied":
-        w = r_sum / jnp.sum(r_sum)
-        new_cov = jnp.log(jnp.einsum("sc,scd->d", w, var_diag))
-    elif covariance_type == "full":
-        exx = jnp.einsum("btsc,btd,bte->scde", r, obs, obs) / r_sum[..., None, None]
-        cov = exx - jnp.einsum("scd,sce->scde", new_means, new_means)
-        cov = cov + var_floor * jnp.eye(D)[None, None]
-        chol = jnp.linalg.cholesky(cov)  # (S, C, D, D)
-        rows, cols = jnp.tril_indices(D)
-        flat = chol[..., rows, cols]
-        # Invert the softplus-diagonal parameterization of tril_from_flat.
-        diag_pos = jnp.asarray([i * (i + 1) // 2 + i for i in range(D)])
-        diag = jnp.diagonal(chol, axis1=-2, axis2=-1)
-        inv_sp = jnp.log(jnp.expm1(jnp.maximum(diag - 1e-4, 1e-6)))
-        flat = flat.at[..., diag_pos].set(inv_sp)
-        new_cov = flat
-    else:
-        raise ValueError(covariance_type)
-
-    new = {
-        "means": new_means,
-        "cov_params": new_cov,
-        "mixture_logits": jnp.log(new_w + 1e-10),
-    }
-    if learnable_transitions:
-        xi = core.xi_expectations(log_alpha, log_beta, log_obs, log_a, log_z)
-        a_new = jnp.sum(jnp.exp(xi), axis=0)  # (K, K): Σ_b Σ_t ξ_t
-        a_new = a_new / (jnp.sum(a_new, axis=-1, keepdims=True) + 1e-10)
-        new["transition_logits"] = jnp.log(a_new + 1e-10)
-    return jnp.mean(log_z), new

@@ -8,7 +8,7 @@ combination with private forward/backward/Viterbi supporting time-varying
 transitions (``neural.py:296-519``) plus a phoneme/prosody contextual
 variant (``neural.py:522-588``).
 
-TPU-first differences:
+Differences from the reference:
 
 * inference reuses the shared ``core`` scan kernels, which already accept
   time-varying ``(B, T, S, S)`` log-transition tensors — no private DP
@@ -51,8 +51,8 @@ __all__ = [
 class _MLP(nnx.Module):
     def __init__(self, din, dhid, dout, dropout, rngs, n_hidden=2):
         # Matmul precision bound at construction (precision policy):
-        # None = backend default (bf16 passes on TPU MXU), HIGHEST =
-        # true f32 when mixed precision is off.
+        # None = backend default (TF32 on the GPU), HIGHEST = true f32
+        # when mixed precision is off.
         prec = matmul_precision()
         dims = [din] + [dhid] * (n_hidden - 1)
         for i, d in enumerate(dims):
@@ -297,57 +297,11 @@ class NeuralObservationModel(TrainMode):
                 )
             return score
 
-        if (
-            state_indices is None and self.model_type == "gaussian"
-            and self._use_fused_emission()
-        ):
-            return self._fused_gaussian_log_probs(observations)
         obs_feats = self._trunk(observations)  # (B, T, H)
         if state_indices is None:
             return self._all_state_log_probs(obs_feats, observations)
         emb = self.state_embedding(state_indices)  # (B, T, H)
         return self._head_log_prob(obs_feats + emb, observations)
-
-    def _fused_gaussian_log_probs(self, observations: jax.Array):
-        """Whole trunk+head chain in one Pallas program
-        (ops/emit_mlp.py). Committed end-to-end A/B at the bench shape:
-        full NeuralHMM forward 0.206 ms fused vs 0.218 ms on the XLA
-        chain (same session, linearity-validated). Inference only (no
-        dropout, no autodiff); identical math to
-        ``_all_state_log_probs``'s gaussian branch."""
-        from ..ops.emit_mlp import fused_gaussian_emission
-        from ..precision import matmul_precision
-
-        emb = self.state_embedding(jnp.arange(self.num_states))
-        ms = emb @ self.mean_net.kernel[...]
-        lvs = emb @ self.logvar_net.kernel[...]
-        center = jnp.mean(ms, axis=0)
-        msc = ms - center
-        ws = jnp.exp(-lvs)
-        return fused_gaussian_emission(
-            observations,
-            self.fe1.kernel[...], self.fe1.bias[...],
-            self.fe2.kernel[...], self.fe2.bias[...],
-            self.mean_net.kernel[...], self.mean_net.bias[...],
-            self.logvar_net.kernel[...], self.logvar_net.bias[...],
-            ws.T, (msc * ws).T, (msc * msc * ws).T,
-            -0.5 * jnp.sum(lvs, axis=-1), center,
-            precision=matmul_precision(),
-        )
-
-    def _use_fused_emission(self) -> bool:
-        import os
-
-        from ..ops.emit_mlp import fused_emission_supported
-
-        return (
-            not self.training
-            and os.environ.get("PYTORCH_HMM_TPU_NO_PALLAS") != "1"
-            and jax.default_backend() == "tpu"
-            and fused_emission_supported(
-                self.observation_dim, self.hidden_dim, self.num_states
-            )
-        )
 
     def _all_state_log_probs(
         self, obs_feats: jax.Array, observations: jax.Array
@@ -359,19 +313,15 @@ class NeuralObservationModel(TrainMode):
         The linear heads distribute over ``obs_feats + state_emb``:
         ``W(f + e) + b = (Wf + b) + We``, so per-state head outputs are
         a shared observation part plus a tiny per-state table. The
-        quadratic runs in the CENTERED expanded form on the MXU —
+        quadratic runs in the CENTERED expanded form as matmuls —
         ``Σ(u' − m'_s)²·w·w_s = u'²w·w_s − 2(u'w)·(m'_s w_s) +
         w·(m'²_s w_s)`` as three ``(B·T, D) @ (D, S)`` dots — after
         shifting both ``u`` and ``m_s`` by the mean of the state means
         (exact; bounds the cross term so the expansion stays
         O(Mahalanobis distance), the same conditioning trick as
         ``emissions.fullcov_prepare``). The dots run at HIGHEST
-        precision: they are ~1 µs of MXU work, and true-f32 passes keep
-        this path within ~1e-5 of the indexed path — the earlier
-        DIRECT-form S-loop (one fused elementwise pass per state,
-        matching the reference's loop ``neural.py:198-208``) measured
-        0.045 ms of VPU time at the benchmark shape for the same
-        result.
+        precision: true-f32 passes keep this path within ~1e-5 of the
+        indexed path.
         """
         D = self.observation_dim
         S = self.num_states
@@ -538,7 +488,7 @@ class NeuralHMM(TrainMode):
         ``jax.sharding.Mesh``), the recursions run on the block-parallel
         sharded layer — time-varying ``(B, T, S, S)`` transitions shard
         over the time axis like the observations, so long contexts scale
-        across devices (VERDICT r3 item 5)."""
+        across devices."""
         B, T, _ = observations.shape
         log_obs = self.observation_model.log_probs(observations)
         log_a = self._log_transitions(context, B, T)

@@ -6,7 +6,7 @@ segment HMM with supervised & unsupervised forward and Viterbi
 (``semi_markov.py:195-633``) and a context-conditioned variant
 (``semi_markov.py:636-681``).
 
-TPU-first differences:
+Differences from the reference:
 
 * the unsupervised forward and Viterbi run on the shared segment-DP scan
   (``core/hsmm.py``) instead of quintuple-nested Python loops over
@@ -31,9 +31,7 @@ import numpy as np
 from flax import nnx
 
 from ..core.hsmm import hsmm_forward
-from ..ops import auto_hsmm_log_z as hsmm_log_z
-from ..ops import auto_hsmm_posteriors as hsmm_posteriors
-from ..ops import auto_hsmm_viterbi as hsmm_viterbi
+from ..core.hsmm import hsmm_log_z, hsmm_posteriors, hsmm_viterbi
 from ..durations import (
     gamma_duration_log_pmf,
     gaussian_duration_log_pmf,

@@ -1,21 +1,15 @@
-"""Pallas TPU kernels for the hot HMM ops.
+"""Dispatch between the GPU trellis kernels and the ``core`` scans.
 
-``scan`` holds the streamed time-scan kernels (forward/backward/Viterbi).
-``fused`` holds the fused GMM-emission + trellis decode kernel.
-``pallas_log_likelihood`` adds a custom-VJP wrapper so the Pallas forward
-kernel is a drop-in, differentiable replacement for
-``core.log_likelihood`` in training losses.
-
-Dispatch guidance: the Pallas kernels pay off on TPU for any non-trivial
-sequence length (the XLA scan costs ~0.7 µs per step in loop overhead;
-the Pallas kernels stream frames through VMEM with fully unrolled frame
-loops at ~0.16-0.3 µs/step). ``auto_forward``/``auto_viterbi`` pick the
-right path; set ``PYTORCH_HMM_TPU_NO_PALLAS=1`` to force the XLA scans.
+``auto_viterbi``, ``auto_forward``, ``auto_forward_backward``,
+``auto_log_likelihood``, ``auto_em_statistics`` and ``auto_gmm_viterbi`` run the Pallas-Triton
+kernels of ``ops.trellis`` when the default backend is the GPU, the
+transitions are static ``(K, K)`` and K is at most the cap below. Everything
+else runs the XLA scans of ``core``, which are also the reference the
+kernels are tested against.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import jax
@@ -23,549 +17,195 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import core
-from .scan import (
-    LANES,
-    pallas_backward,
-    pallas_backward_prob,
-    pallas_fb_prob,
-    pallas_forward,
-    pallas_forward_prob,
-    pallas_viterbi,
-)
-from .fused import fused_gmm_supported, fused_gmm_viterbi
-from .hsmm_smallk import (
-    hsmm_smallk_backward,
-    hsmm_smallk_forward,
-    hsmm_smallk_supported,
-    hsmm_smallk_viterbi,
-)
-from .smallk import smallk_supported, smallk_viterbi
-from .fbsum import fbsum_smallk, fbsum_supported
-from .bigk import bigk_log_likelihood, bigk_supported
+from .trellis import trellis_forward_backward, trellis_viterbi
 
 __all__ = [
-    "pallas_forward",
-    "pallas_forward_prob",
-    "pallas_backward",
-    "pallas_backward_prob",
-    "pallas_viterbi",
-    "pallas_log_likelihood",
     "auto_forward",
     "auto_forward_backward",
+    "auto_em_statistics",
     "auto_viterbi",
     "auto_log_likelihood",
     "auto_gmm_viterbi",
-    "auto_hsmm_viterbi",
-    "auto_hsmm_log_z",
-    "auto_hsmm_posteriors",
-    "fused_gmm_viterbi",
-    "fused_gmm_supported",
-    "hsmm_smallk_viterbi",
-    "hsmm_smallk_forward",
-    "hsmm_smallk_backward",
-    "hsmm_smallk_supported",
-    "smallk_viterbi",
-    "smallk_supported",
-    "bigk_log_likelihood",
-    "bigk_supported",
-    "pallas_available",
+    "trellis_applies",
+    "trellis_forward_backward",
+    "trellis_viterbi",
+    "TRELLIS_MAX_K",
 ]
 
-# Beyond this the (Kp, Kp) transition tile and double buffers no longer
-# fit VMEM comfortably; the XLA scan handles the tail case.
-_MAX_K = 1024
-
-def _pallas_opt_out() -> bool:
-    """Read the opt-out env var at call time (not import time), so
-    PYTORCH_HMM_TPU_NO_PALLAS=1 can be toggled at runtime — e.g. to
-    A/B the XLA path or work around a kernel issue without a
-    re-import. streaming.py reads it the same way."""
-    return os.environ.get("PYTORCH_HMM_TPU_NO_PALLAS") == "1"
+# Largest state count the kernels take: measured faster than the XLA scans
+# up to here on the card (PERF.md); beyond it the (Kp, Kp) step tile
+# outgrows one program's registers.
+TRELLIS_MAX_K = 128
 
 
-def pallas_available(num_states: int) -> bool:
-    """True when the Pallas path applies on this backend."""
+def trellis_applies(num_states: int, log_a: jax.Array) -> bool:
+    """True when the trellis kernels serve this call: GPU backend, static
+    ``(K, K)`` transitions, ``K <= TRELLIS_MAX_K``."""
     return (
-        not _pallas_opt_out()
-        and jax.default_backend() == "tpu"
-        and num_states <= _MAX_K
+        jax.default_backend() == "gpu"
+        and log_a.ndim == 2
+        and num_states <= TRELLIS_MAX_K
     )
 
 
-# Below this T the log-space kernel's accuracy edge is free; the prob
-# kernel wins from T≈1024 on (measured at K=64 B=32 on v5e: 0.24 vs
-# 0.18 ms at T=1024, 1.44× by T=131072; even at T=512 both are ~0.11).
-_PROB_FWD_MIN_T = 1024
-# When log_a is a tracer its finiteness can't be inspected, so the
-# 1024..4096 window keeps the (envelope-free) log-space kernel and the
-# prob kernel only takes over where its win is decisive. Verified-finite
-# transitions still switch at _PROB_FWD_MIN_T.
-_PROB_FWD_UNVERIFIED_MIN_T = 4096
+def _shifted(log_obs, lengths):
+    """Per-frame max shift of the emissions, zero past each row's end.
 
-
-def _prob_kernel_safe(log_a):
-    """Envelope check for the prob-space kernels: ``True`` (finite,
-    safe), ``False`` (has -inf entries, unsafe), or ``None`` (traced —
-    cannot be established).
-
-    The prob kernels' scaled carry q rescales once per rs block; a
-    sustained per-frame shrink beyond ~e^-87/rs within one block
-    (possible only when hard-zero transitions force all reachable
-    states onto strongly mismatched emissions) underflows q to exact
-    zeros, and the max(q, 1e-37) rescale floor then leaves alpha
-    silently wrong for the rest of the sequence. Finite transition rows
-    cannot sustain that shrink (the per-frame max-shift bounds e_t at 1
-    and every state stays reachable). Traced log_a (inside a caller's
-    jit — the dominant usage) cannot be inspected without changing
-    trace semantics; ``_prob_ok`` then keeps the log-space kernel below
-    ``_PROB_FWD_UNVERIFIED_MIN_T`` and accepts the documented envelope
-    only in the long-context regime where the prob kernel's win is
-    decisive (finite rows are safe; hard-zero transitions combined with
-    emissions mismatched by more than ~e^-87 per rs block are not).
+    Raw log-alpha reaches ``|T log p| ~ 1e5`` at speech shapes, where one
+    float32 ulp is ~8e-3 and posteriors taken from ``alpha + beta`` absorb
+    that as error. Shifting each frame by its max adds the same constant
+    to every state, so posteriors are unchanged in exact arithmetic but
+    computed at far smaller magnitudes. Returns ``(log_obs - shift,
+    cumulative shift (B, T, 1))``.
     """
-    if isinstance(log_a, jax.core.Tracer):
-        return None
-    # log_a is concrete — inspect it with NumPy. A jnp.isfinite here
-    # would be STAGED into any caller's active trace (ops on concrete
-    # arrays inside jit are traced, not folded) and a bool() of it
-    # would raise TracerBoolConversionError; np.asarray on a concrete
-    # array is a plain fetch and happens once per compilation.
-    import numpy as np
-
-    return bool(np.isfinite(np.asarray(log_a)).all())
+    shift = jnp.max(log_obs, axis=-1, keepdims=True)
+    shift = jnp.where(jnp.isfinite(shift), shift, 0.0)
+    if lengths is not None:
+        valid = jnp.arange(log_obs.shape[1])[None, :, None] < lengths[:, None, None]
+        shift = jnp.where(valid, shift, 0.0)
+    return log_obs - shift, jnp.cumsum(shift, axis=1)
 
 
-def _prob_ok(log_a, T: int) -> bool:
-    """Static prob-kernel gate at sequence length ``T`` (see
-    ``_prob_kernel_safe``)."""
-    safe = _prob_kernel_safe(log_a)
-    if safe is None:
-        return T >= _PROB_FWD_UNVERIFIED_MIN_T
-    return safe
+def _total(csh):
+    """Sum of the shifts over each row's valid frames, ``(B,)`` (the shift
+    is zero past a row's end)."""
+    return csh[:, -1, 0]
 
 
-def _hmm_fwd_fast(log_obs, log_a, log_pi, lengths=None,
-                  posterior_grade=False):
-    """HMM forward ``(log_alpha, log_z)`` on the fastest Pallas path.
-
-    A plain HMM is an HSMM with the duration pmf fixed at 1 frame, so
-    for K ≤ 32 this runs the transposed-layout sum kernel (states on
-    sublanes — measured ~4× the lane-layout kernel at K=12, B=16,
-    T=1000). Long sequences (T ≥ 1024, unragged, K ≤ 128) run the
-    minimal-latency prob-space kernel (``pallas_forward_prob``,
-    measured 1.25-1.4× at T=131072), with multiply precision from the
-    mixed-precision policy unless ``posterior_grade`` forces true f32.
-    Lengths or larger K use the lane-layout log-space kernel.
-    """
-    B, T, K = log_obs.shape
-    if lengths is None and hsmm_smallk_supported(K, 1, B):
-        ld1 = jnp.zeros((K, 1), jnp.float32)
-        return hsmm_smallk_forward(log_obs, log_a, log_pi, ld1)
-    if (
-        lengths is None and T >= _PROB_FWD_MIN_T and K <= LANES
-        and _prob_ok(log_a, T)
-    ):
-        from ..precision import mixed_precision_enabled
-
-        prec = (
-            jax.lax.Precision.HIGHEST
-            if posterior_grade or not mixed_precision_enabled()
-            else jax.lax.Precision.DEFAULT
-        )
-        return pallas_forward_prob(log_obs, log_a, log_pi, precision=prec)
-    return pallas_forward(log_obs, log_a, log_pi, lengths)
-
-
-def _hmm_bwd_fast(log_obs, log_a, lengths=None, posterior_grade=False):
-    """HMM backward ``log_beta`` — transposed D=1 kernel when it
-    applies (beta == the HSMM's beta-star at unit durations); long
-    unragged sequences use the minimal-latency prob-space kernel
-    (mirror of the forward dispatch)."""
-    B, T, K = log_obs.shape
-    if lengths is None and hsmm_smallk_supported(K, 1, B):
-        ld1 = jnp.zeros((K, 1), jnp.float32)
-        return hsmm_smallk_backward(log_obs, log_a, ld1)[0]
-    if (
-        lengths is None and T >= _PROB_FWD_MIN_T and K <= LANES
-        and _prob_ok(log_a, T)
-    ):
-        from ..precision import mixed_precision_enabled
-
-        prec = (
-            jax.lax.Precision.HIGHEST
-            if posterior_grade or not mixed_precision_enabled()
-            else jax.lax.Precision.DEFAULT
-        )
-        return pallas_backward_prob(log_obs, log_a, precision=prec)
-    return pallas_backward(log_obs, log_a, lengths)
-
-
-@jax.custom_vjp
-def pallas_log_likelihood(log_obs, log_a, log_pi):
-    """Sequence log-likelihood ``(B,)`` on the Pallas forward kernel,
-    differentiable via the classic forward-backward identities:
-
-    ``∂ log Z / ∂ log_obs = γ`` (state posteriors),
-    ``∂ log Z / ∂ log_a = Σ_t ξ_t`` (pairwise posteriors),
-    ``∂ log Z / ∂ log_pi = γ_0``.
-    """
-    _, lz = _hmm_fwd_fast(log_obs, log_a, log_pi)
-    return lz
-
-
-def _ll_fwd(log_obs, log_a, log_pi):
-    # Gradients are posteriors (gamma/xi): the alpha saved here feeds
-    # them, so the VJP path always runs posterior-grade (HIGHEST dots
-    # in the long-sequence prob kernels) regardless of the mixed flag —
-    # measured: DEFAULT dots cost ~5e-2 absolute on gamma at T=5000.
-    B, T, K = log_obs.shape
-    if (
-        not hsmm_smallk_supported(K, 1, B)
-        and T >= _PROB_FWD_MIN_T and K <= LANES
-        and _prob_ok(log_a, T)
-    ):
-        # The VJP ALWAYS runs a backward right after this, so in the
-        # long-context regime both chains come from one fused kernel
-        # pass (pallas_fb_prob) — measured 29 + 29 ms sequential vs
-        # ~35 ms fused at (B=32, T=131072, K=64); beta rides alpha's
-        # dependency stalls.
-        log_alpha, log_beta, lz = pallas_fb_prob(
-            log_obs, log_a, log_pi,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        return lz, (log_obs, log_a, log_pi, log_alpha, log_beta, lz)
-    log_alpha, lz = _hmm_fwd_fast(
-        log_obs, log_a, log_pi, posterior_grade=True
+def _fb(log_obs, log_a, log_pi, lengths, backward):
+    lo_hat, csh = _shifted(log_obs, lengths)
+    alpha_hat, beta_hat, lz_hat = trellis_forward_backward(
+        lo_hat, log_a, log_pi, lengths, backward=backward
     )
-    return lz, (log_obs, log_a, log_pi, log_alpha, None, lz)
-
-
-def _ll_bwd(res, g):
-    log_obs, log_a, log_pi, log_alpha, log_beta, lz = res
-    if log_beta is None:
-        log_beta = _hmm_bwd_fast(log_obs, log_a, posterior_grade=True)
-    log_gamma = log_alpha + log_beta - lz[:, None, None]
-    gamma = jnp.exp(log_gamma)
-    gw = g[:, None, None] * gamma
-    d_log_obs = gw
-    d_log_pi = jnp.sum(g[:, None] * jnp.exp(log_gamma[:, 0]), axis=0)
-    lxi = core.fb.xi_expectations(
-        log_alpha, log_beta, log_obs, log_a, lz
-    )  # (B, K, K) log-space summed xi
-    d_log_a = jnp.sum(g[:, None, None] * jnp.exp(lxi), axis=0)
-    return d_log_obs, d_log_a, d_log_pi
-
-
-pallas_log_likelihood.defvjp(_ll_fwd, _ll_bwd)
-
-
-@jax.custom_vjp
-def _pallas_ll_masked(log_obs, log_a, log_pi, lengths):
-    _, lz = pallas_forward(log_obs, log_a, log_pi, lengths)
-    return lz
-
-
-def _llm_fwd(log_obs, log_a, log_pi, lengths):
-    B, T, K = log_obs.shape
-    if T < _PROB_FWD_MIN_T and fbsum_supported(K, B):
-        # Ragged fused FB: the VJP always needs beta next, so both
-        # chains come from one interleaved kernel pass (per-lane
-        # freezes — VERDICT r4 item 7).
-        log_alpha, log_beta, lz = fbsum_smallk(
-            log_obs, log_a, log_pi, lengths
-        )
-        return lz, (log_obs, log_a, log_pi, lengths, log_alpha,
-                    log_beta, lz)
-    log_alpha, lz = pallas_forward(log_obs, log_a, log_pi, lengths)
-    return lz, (log_obs, log_a, log_pi, lengths, log_alpha, None, lz)
-
-
-def _llm_bwd(res, g):
-    log_obs, log_a, log_pi, lengths, log_alpha, log_beta, lz = res
-    B, T, K = log_obs.shape
-    if log_beta is None:
-        log_beta = pallas_backward(log_obs, log_a, lengths)
-    log_gamma = log_alpha + log_beta - lz[:, None, None]
-    gamma = jnp.exp(log_gamma)
-    # Frames past each row's end carry frozen (garbage) posteriors — they
-    # contribute nothing to log Z, so their gradients are zero.
-    valid = (jnp.arange(T)[None, :] < lengths[:, None])[..., None]
-    gamma = jnp.where(valid, gamma, 0.0)
-    gw = g[:, None, None] * gamma
-    d_log_obs = gw
-    d_log_pi = jnp.sum(g[:, None] * jnp.exp(log_gamma[:, 0]), axis=0)
-    # Pairwise posteriors, masked to transitions that land inside the
-    # valid range (t+1 < length).
-    la = log_a[None, None]
-    lxi = (
-        log_alpha[:, :-1, :, None]
-        + la
-        + (log_obs + log_beta)[:, 1:, None, :]
-        - lz[:, None, None, None]
-    )
-    tmask = (jnp.arange(1, T)[None, :] < lengths[:, None])[..., None, None]
-    xi = jnp.where(tmask, jnp.exp(lxi), 0.0)
-    d_log_a = jnp.sum(g[:, None, None] * jnp.sum(xi, axis=1), axis=0)
-    d_lengths = np.zeros(lengths.shape, dtype=jax.dtypes.float0)
-    return d_log_obs, d_log_a, d_log_pi, d_lengths
-
-
-_pallas_ll_masked.defvjp(_llm_fwd, _llm_bwd)
+    return lo_hat, csh, alpha_hat, beta_hat, lz_hat
 
 
 def auto_forward(log_obs, log_a, log_pi, lengths: Optional[jax.Array] = None):
-    """``(log_alpha, log_z)`` via Pallas on TPU (static K), XLA scan
-    elsewhere.
-
-    Always runs posterior-grade (``Precision.HIGHEST`` dots in the
-    long-sequence prob-space kernel): log-alpha is the deliverable here
-    and callers derive posteriors/statistics from it, so the
-    mixed-precision policy never degrades it. Likelihood-only paths
-    (``pallas_log_likelihood``'s primal) keep the faster DEFAULT dots.
-    """
-    if pallas_available(log_obs.shape[-1]) and log_a.ndim == 2:
-        return _hmm_fwd_fast(
-            log_obs, log_a, log_pi, lengths, posterior_grade=True
-        )
-    return core.forward_log(log_obs, log_a, log_pi, lengths)
+    """``(log_alpha, log_z)``: the forward kernel on the GPU, else
+    ``core.forward_log``."""
+    if not trellis_applies(log_obs.shape[-1], log_a):
+        return core.forward_log(log_obs, log_a, log_pi, lengths)
+    _, csh, alpha_hat, _, lz_hat = _fb(log_obs, log_a, log_pi, lengths, False)
+    return alpha_hat + csh, lz_hat + _total(csh)
 
 
 def auto_forward_backward(
     log_obs, log_a, log_pi, lengths: Optional[jax.Array] = None
 ):
-    """``(log_gamma, log_alpha, log_beta, log_z)`` — the Pallas forward
-    and backward kernels on TPU (static ``(K, K)`` transitions), the XLA
-    scans elsewhere / for time-varying transitions. The posterior
-    normalization matches ``core.forward_backward`` exactly."""
-    if pallas_available(log_obs.shape[-1]) and log_a.ndim == 2:
-        # Condition the recursions: raw log-alpha reaches |T·log p| ~ 1e5
-        # at speech shapes, where one f32 ulp is ~8e-3 — posteriors
-        # computed from raw alpha+beta absorb that as error. Shifting
-        # each frame's emissions by their per-frame max adds the same
-        # per-frame constant to every state's alpha/beta sum, so gamma
-        # is EXACTLY unchanged mathematically but computed at O(1e3)
-        # magnitudes (~100× finer ulp). The shift is re-added to the
-        # returned alpha/beta/log_z so the API stays raw.
-        shift = jnp.max(log_obs, axis=-1, keepdims=True)   # (B, T, 1)
-        lo_hat = log_obs - shift
-        B, T, K = log_obs.shape
-        if T < _PROB_FWD_MIN_T and fbsum_supported(K, B):
-            # Bidirectional fused kernel: both chains in one program
-            # (the independent recursions interleave, ~2x the two
-            # sequential launches — ops/fbsum.py). Ragged batches keep
-            # the fused win via per-lane freezes (VERDICT r4 item 7).
-            alpha_hat, beta_hat, lz_hat = fbsum_smallk(
-                lo_hat, log_a, log_pi, lengths
-            )
-        elif (
-            lengths is None and T >= _PROB_FWD_MIN_T and K <= LANES
-            and _prob_ok(log_a, T)
-        ):
-            # Long-context twin: both prob-space chains fused in one
-            # kernel pass (ops/scan.py pallas_fb_prob). Posteriors are
-            # the deliverable here, so dots run at true f32.
-            alpha_hat, beta_hat, lz_hat = pallas_fb_prob(
-                lo_hat, log_a, log_pi,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        else:
-            alpha_hat, lz_hat = _hmm_fwd_fast(
-                lo_hat, log_a, log_pi, lengths, posterior_grade=True
-            )
-            beta_hat = _hmm_bwd_fast(
-                lo_hat, log_a, lengths, posterior_grade=True
-            )
-        lg = alpha_hat + beta_hat
-        log_gamma = lg - core.semiring.logsumexp(lg, axis=-1, keepdims=True)
-        if lengths is not None:
-            valid = (
-                jnp.arange(log_obs.shape[1])[None, :, None]
-                < lengths[:, None, None]
-            )
-            shift = jnp.where(valid, shift, 0.0)
-        csh = core.hsmm._cumsum_time(shift)                # Σ_{u<=t} shift
-        log_alpha = alpha_hat + csh
-        total = csh[:, -1] if lengths is None else (
-            jnp.take_along_axis(
-                csh, (lengths - 1).astype(jnp.int32)[:, None, None], axis=1
-            )[:, 0]
+    """``(log_gamma, log_alpha, log_beta, log_z)``: both recursions in one
+    kernel launch on the GPU, else ``core.forward_backward``. The posterior
+    normalization matches ``core.forward_backward``."""
+    if not trellis_applies(log_obs.shape[-1], log_a):
+        return core.forward_backward(log_obs, log_a, log_pi, lengths)
+    _, csh, alpha_hat, beta_hat, lz_hat = _fb(
+        log_obs, log_a, log_pi, lengths, True
+    )
+    lg = alpha_hat + beta_hat
+    log_gamma = lg - core.semiring.logsumexp(lg, axis=-1, keepdims=True)
+    total = _total(csh)
+    log_alpha = alpha_hat + csh
+    log_beta = beta_hat + (total[:, None, None] - csh)
+    return log_gamma, log_alpha, log_beta, lz_hat + total
+
+
+def _xi_sum(lo_hat, log_a, alpha_hat, beta_hat, valid=None):
+    """Pairwise posteriors summed over time, ``(B, K, K)``, from the
+    shifted recursions. Each frame pair is normalized to sum to 1 rather
+    than divided by Z: over a long sequence alpha and beta drift by a
+    rounding error common to all states of a frame, which the
+    normalization cancels and division by Z would not. ``valid (B, T)``
+    zeroes pairs past a row's end."""
+    lxi = (
+        alpha_hat[:, :-1, :, None]
+        + log_a[None, None]
+        + (lo_hat + beta_hat)[:, 1:, None, :]
+    )
+    lxi = lxi - core.semiring.logsumexp(lxi, axis=(-2, -1), keepdims=True)
+    xi = jnp.exp(lxi)
+    if valid is not None:
+        xi = jnp.where(valid[:, 1:, None, None], xi, 0.0)
+    return jnp.sum(xi, axis=1)
+
+
+def auto_em_statistics(log_obs, log_a, log_pi):
+    """E-step statistics ``(log_gamma, xi (B, K, K), log_z)``: posteriors,
+    pairwise posteriors summed over time, and the likelihood. On the GPU
+    both recursions run in one kernel launch on shifted emissions, and xi
+    is normalized per frame pair (``_xi_sum``); else
+    ``core.forward_backward`` and ``core.xi_expectations``."""
+    if not trellis_applies(log_obs.shape[-1], log_a):
+        log_gamma, log_alpha, log_beta, log_z = core.forward_backward(
+            log_obs, log_a, log_pi
         )
-        log_beta = beta_hat + (total[:, None] - csh)
-        log_z = lz_hat + total[:, 0]
-        return log_gamma, log_alpha, log_beta, log_z
-    return core.forward_backward(log_obs, log_a, log_pi, lengths)
+        xi = core.xi_expectations(log_alpha, log_beta, log_obs, log_a, log_z)
+        return log_gamma, jnp.exp(xi), log_z
+    lo_hat, csh, alpha_hat, beta_hat, lz_hat = _fb(
+        log_obs, log_a, log_pi, None, True
+    )
+    lg = alpha_hat + beta_hat
+    log_gamma = lg - core.semiring.logsumexp(lg, axis=-1, keepdims=True)
+    xi = _xi_sum(lo_hat, log_a, alpha_hat, beta_hat)
+    return log_gamma, xi, lz_hat + _total(csh)
 
 
 def auto_viterbi(log_obs, log_a, log_pi, lengths: Optional[jax.Array] = None):
-    """``(states, score)`` — Pallas decode on TPU, XLA scan elsewhere.
-
-    For K ≤ 32 (the reference's whole benchmark regime) this runs the
-    transposed-layout ``smallk_viterbi`` — measured ~3× the XLA scan at
-    the flagship config (0.14 ms vs 0.40 ms, B=32 T=1000 K=12 on v5e);
-    larger K uses the general lane-layout two-kernel decode. Paths are
-    identical on every path, including tie-breaks (all break toward the
-    lowest state index)."""
-    B, _, K = log_obs.shape
-    if pallas_available(K) and log_a.ndim == 2:
-        if smallk_supported(K, B):
-            return smallk_viterbi(log_obs, log_a, log_pi, lengths)
-        return pallas_viterbi(log_obs, log_a, log_pi, lengths)
+    """``(states, score)``: the Viterbi kernel on the GPU, else
+    ``core.viterbi``. Paths are identical on both, tie-breaks included
+    (all break toward the lowest state index)."""
+    if trellis_applies(log_obs.shape[-1], log_a):
+        return trellis_viterbi(log_obs, log_a, log_pi, lengths)
     return core.viterbi(log_obs, log_a, log_pi, lengths)
+
+
+@jax.custom_vjp
+def _trellis_log_likelihood(log_obs, log_a, log_pi, lengths):
+    _, csh, _, _, lz_hat = _fb(log_obs, log_a, log_pi, lengths, False)
+    return lz_hat + _total(csh)
+
+
+def _ll_fwd(log_obs, log_a, log_pi, lengths):
+    # The backward pass always needs beta, so both recursions run now, in
+    # one launch, on the shifted emissions (posteriors at small magnitude).
+    lo_hat, csh, alpha_hat, beta_hat, lz_hat = _fb(
+        log_obs, log_a, log_pi, lengths, True
+    )
+    lz = lz_hat + _total(csh)
+    return lz, (lo_hat, log_a, lengths, alpha_hat, beta_hat)
+
+
+def _ll_bwd(res, g):
+    """Classic forward-backward identities: ``d log Z / d log_obs = gamma``,
+    ``d log Z / d log_a = sum_t xi_t``, ``d log Z / d log_pi = gamma_0``;
+    frames past a row's end get zero. Each frame's gamma and each frame
+    pair's xi are normalized to sum to 1 (see ``_xi_sum``)."""
+    lo_hat, log_a, lengths, alpha_hat, beta_hat = res
+    T = lo_hat.shape[1]
+    lse = core.semiring.logsumexp
+    valid = jnp.arange(T)[None, :] < lengths[:, None]
+    lg = alpha_hat + beta_hat
+    gamma = jnp.exp(lg - lse(lg, axis=-1, keepdims=True))
+    gamma = jnp.where(valid[..., None], gamma, 0.0)
+    d_log_obs = g[:, None, None] * gamma
+    d_log_pi = jnp.sum(g[:, None] * gamma[:, 0], axis=0)
+    xi = _xi_sum(lo_hat, log_a, alpha_hat, beta_hat, valid)
+    d_log_a = jnp.sum(g[:, None, None] * xi, axis=0)
+    d_lengths = np.zeros(lengths.shape, dtype=jax.dtypes.float0)
+    return d_log_obs, d_log_a, d_log_pi, d_lengths
+
+
+_trellis_log_likelihood.defvjp(_ll_fwd, _ll_bwd)
 
 
 def auto_log_likelihood(
     log_obs, log_a, log_pi, lengths: Optional[jax.Array] = None
 ):
-    """Differentiable ``log Z (B,)`` via the Pallas forward kernel on TPU
-    (hardware-validated; ~4x the XLA scan at the flagship config). Tile
-    sizes are auto-picked inside the kernels (one grid program when the
-    batch fills the tile; t_chunk=128 — t_chunk=64 wedged the chip's DMA
-    engine in hardware testing and is avoided everywhere)."""
-    if pallas_available(log_obs.shape[-1]) and log_a.ndim == 2:
-        if lengths is None:
-            return pallas_log_likelihood(log_obs, log_a, log_pi)
-        return _pallas_ll_masked(log_obs, log_a, log_pi, lengths)
-    return core.log_likelihood(log_obs, log_a, log_pi, lengths)
-
-
-def auto_hsmm_viterbi(
-    log_obs,
-    log_a,
-    log_pi,
-    log_dur,
-    lengths: Optional[jax.Array] = None,
-):
-    """HSMM Viterbi segmentation ``(states, score)`` — the Pallas
-    transposed-layout segment-DP kernel on TPU (the XLA scan is
-    latency-bound at the reference benchmark shape), ``core.hsmm_viterbi``
-    elsewhere. Paths/scores are identical on both paths, tie-breaks
-    included. Replaces (performance-wise) reference ``hsmm.py:245-354``."""
-    if _hsmm_pallas_available(log_obs, log_dur):
-        return hsmm_smallk_viterbi(log_obs, log_a, log_pi, log_dur, lengths)
-    from ..core.hsmm import hsmm_viterbi
-
-    return hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lengths)
-
-
-def _hsmm_pallas_available(log_obs, log_dur):
-    B, _, S = log_obs.shape
-    D = log_dur.shape[-1]
-    return (
-        not _pallas_opt_out()
-        and jax.default_backend() == "tpu"
-        and hsmm_smallk_supported(S, D, B)
-    )
-
-
-@jax.custom_vjp
-def _pallas_hsmm_lz(log_obs, log_a, log_pi, log_dur):
-    _, lz = hsmm_smallk_forward(log_obs, log_a, log_pi, log_dur)
-    return lz
-
-
-def _phz_fwd(log_obs, log_a, log_pi, log_dur):
-    log_alpha, lz = hsmm_smallk_forward(log_obs, log_a, log_pi, log_dur)
-    return lz, (log_obs, log_a, log_pi, log_dur, log_alpha, lz)
-
-
-def _phz_bwd(res, g):
-    from ..core.hsmm import hsmm_grads_from_tables
-
-    log_obs, log_a, log_pi, log_dur, log_alpha, lz = res
-    bstar, bstart = hsmm_smallk_backward(log_obs, log_a, log_dur)
-    return hsmm_grads_from_tables(
-        log_obs, log_a, log_pi, log_dur, log_alpha, bstar, bstart, lz,
-        None, g,
-    )
-
-
-_pallas_hsmm_lz.defvjp(_phz_fwd, _phz_bwd)
-
-
-@jax.custom_vjp
-def _pallas_hsmm_lz_masked(log_obs, log_a, log_pi, log_dur, lengths):
-    _, lz = hsmm_smallk_forward(log_obs, log_a, log_pi, log_dur, lengths)
-    return lz
-
-
-def _phzm_fwd(log_obs, log_a, log_pi, log_dur, lengths):
-    log_alpha, lz = hsmm_smallk_forward(
-        log_obs, log_a, log_pi, log_dur, lengths
-    )
-    return lz, (log_obs, log_a, log_pi, log_dur, lengths, log_alpha, lz)
-
-
-def _phzm_bwd(res, g):
-    from ..core.hsmm import hsmm_grads_from_tables
-
-    log_obs, log_a, log_pi, log_dur, lengths, log_alpha, lz = res
-    bstar, bstart = hsmm_smallk_backward(log_obs, log_a, log_dur, lengths)
-    grads = hsmm_grads_from_tables(
-        log_obs, log_a, log_pi, log_dur, log_alpha, bstar, bstart, lz,
-        lengths, g,
-    )
-    d_lengths = np.zeros(lengths.shape, dtype=jax.dtypes.float0)
-    return (*grads, d_lengths)
-
-
-_pallas_hsmm_lz_masked.defvjp(_phzm_fwd, _phzm_bwd)
-
-
-def auto_hsmm_log_z(log_obs, log_a, log_pi, log_dur, lengths=None):
-    """Differentiable HSMM log-likelihood ``(B,)`` — the Pallas
-    segment-DP forward kernel on TPU with closed-form
-    posterior-expectation cotangents (Pallas backward kernel + table
-    algebra); the XLA scans elsewhere. See ``core.hsmm_log_z``."""
-    from ..core.hsmm import hsmm_log_z
-
-    if _hsmm_pallas_available(log_obs, log_dur):
-        if lengths is None:
-            return _pallas_hsmm_lz(log_obs, log_a, log_pi, log_dur)
-        return _pallas_hsmm_lz_masked(
-            log_obs, log_a, log_pi, log_dur, lengths
-        )
-    return hsmm_log_z(log_obs, log_a, log_pi, log_dur, lengths)
-
-
-def auto_hsmm_posteriors(log_obs, log_a, log_pi, log_dur, lengths=None):
-    """Exact HSMM posteriors dict — Pallas forward/backward kernels on
-    TPU, XLA scans elsewhere. See ``core.hsmm_posteriors``."""
-    from ..core.hsmm import hsmm_posteriors, hsmm_posteriors_from_tables
-
-    from .hsmm_smallk import hsmm_smallk_fb_supported
-
-    if _hsmm_pallas_available(log_obs, log_dur):
-        B, _, S = log_obs.shape
-        if lengths is None and hsmm_smallk_fb_supported(
-            S, log_dur.shape[-1], B
-        ):
-            # Both chains in one fused kernel pass (hsmm_smallk_fb;
-            # exact parity, 0.47 -> 0.43 ms — the ring-bound body
-            # limits the interleaving win; see the kernel's note).
-            # The fused kernel's third duration ring needs its own VMEM
-            # gate (ADVICE r4); near-budget shapes use the separate
-            # kernels below.
-            from .hsmm_smallk import hsmm_smallk_fb
-
-            log_alpha, lz, bstar, bstart = hsmm_smallk_fb(
-                log_obs, log_a, log_pi, log_dur
-            )
-        elif lengths is None:
-            log_alpha, lz = hsmm_smallk_forward(
-                log_obs, log_a, log_pi, log_dur
-            )
-            bstar, bstart = hsmm_smallk_backward(log_obs, log_a, log_dur)
-        else:
-            log_alpha, lz = hsmm_smallk_forward(
-                log_obs, log_a, log_pi, log_dur, lengths
-            )
-            bstar, bstart = hsmm_smallk_backward(
-                log_obs, log_a, log_dur, lengths
-            )
-        return hsmm_posteriors_from_tables(
-            log_a, log_pi, log_alpha, bstar, bstart, lz, lengths
-        )
-    return hsmm_posteriors(log_obs, log_a, log_pi, log_dur, lengths)
+    """Differentiable ``log Z (B,)``: the forward kernel with a closed-form
+    VJP on the GPU, else ``core.log_likelihood``."""
+    if not trellis_applies(log_obs.shape[-1], log_a):
+        return core.log_likelihood(log_obs, log_a, log_pi, lengths)
+    if lengths is None:
+        lengths = jnp.full((log_obs.shape[0],), log_obs.shape[1], jnp.int32)
+    return _trellis_log_likelihood(log_obs, log_a, log_pi, lengths)
 
 
 def auto_gmm_viterbi(
@@ -579,46 +219,16 @@ def auto_gmm_viterbi(
     covariance_type: str = "diag",
     log_vars=None,
 ):
-    """GMM-HMM decode ``(states, score)`` for ALL covariance families —
-    the flagship path.
+    """GMM-HMM decode ``(states, score)`` for every covariance family: the
+    flagship path. Emission scoring is XLA's (matmul form, see
+    ``emissions``); the trellis is ``auto_viterbi``.
 
-    On TPU this picks the fastest measured path for the shape:
-
-    * K ≤ 32: matmul-form emission scoring (MXU; bf16 contractions under
-      the precision policy) + the transposed-layout ``smallk_viterbi``
-      (0.21 ms at the flagship B=32 T=1000 S=12 C=4 D=80 diag config on
-      v5e — the emission pass is ~0.07 ms and fusing it buys nothing
-      once the trellis is this fast). Full covariance scores through
-      precomputed inverse-Cholesky whitening matmuls
-      (``emissions.full_gaussian_log_probs``) into the same kernel;
-    * diag with K ≤ 128 and C·ceil8(K) ≤ 128: the single fused Pallas
-      kernel (emission + trellis in one VMEM-resident program — no
-      ``(B, T, S)`` log-obs round trip through HBM);
-    * otherwise: emission scoring + ``auto_viterbi``.
-
-    Replaces reference ``mixture_gaussian.py:340-365`` /
-    ``mixture_gaussian.py:216-288`` (all four covariance types hit a
-    TPU fast path; VERDICT r2 item 3).
+    ``log_w`` are log mixture weights ``(S, C)``; ``log_vars`` is the older
+    keyword name of ``cov_params``.
     """
     from ..emissions import gmm_log_probs
 
     if cov_params is None:
-        cov_params = log_vars  # pre-r3 keyword name (diag-only era)
-    S, C = log_w.shape
-    B = obs.shape[0]
-    on_tpu = not _pallas_opt_out() and jax.default_backend() == "tpu"
-    if on_tpu and smallk_supported(S, B):
-        log_obs = gmm_log_probs(
-            obs, means, cov_params, log_w, covariance_type
-        )
-        return smallk_viterbi(log_obs, log_a, log_pi, lengths)
-    if (
-        on_tpu
-        and covariance_type == "diag"
-        and fused_gmm_supported(S, C, "diag")
-    ):
-        return fused_gmm_viterbi(
-            obs, means, cov_params, log_w, log_a, log_pi, lengths
-        )
+        cov_params = log_vars
     log_obs = gmm_log_probs(obs, means, cov_params, log_w, covariance_type)
     return auto_viterbi(log_obs, log_a, log_pi, lengths)

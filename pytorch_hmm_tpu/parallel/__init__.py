@@ -1,4 +1,4 @@
-"""SPMD parallelism over TPU device meshes.
+"""SPMD parallelism over device meshes.
 
 A first-class subsystem the reference entirely lacks (it has no
 ``torch.distributed``, no multi-device code of any kind — SURVEY.md §2.3):
@@ -8,7 +8,8 @@ A first-class subsystem the reference entirely lacks (it has no
   K-vector boundary-state exchange over the ``time`` axis;
 * ``train`` — sharded NLL training steps (DP batch + SP time);
 * ``elastic`` — fail-fast supervision (watchdog, heartbeat) and
-  restart-from-checkpoint elastic training.
+  restart-from-checkpoint elastic training (needs flax; loaded on first
+  use).
 """
 
 from .mesh import (
@@ -32,13 +33,15 @@ from .sharded_hsmm import (
 )
 from .multihost import global_mesh, initialize_multihost
 from .train import hmm_loss_parts, make_sharded_train_step, shard_batch
-from .elastic import (
-    ElasticTrainer,
-    NonFiniteLossError,
-    Watchdog,
-    heartbeat,
-    latest_step,
-)
+from .._lazy import lazy_getattr
+
+__getattr__ = lazy_getattr(__name__, {
+    name: ".elastic"
+    for name in (
+        "ElasticTrainer", "NonFiniteLossError", "Watchdog", "heartbeat",
+        "latest_step",
+    )
+})
 
 __all__ = [
     "DATA_AXIS",

@@ -3,11 +3,11 @@
 The reference has no failure-detection or recovery story at all — its
 closest artifacts are an OOM catch-and-halve recipe in the docs and an
 iteration-cap valve in HSMM generation (SURVEY.md §5 "Failure detection
-/ elastic recovery"). Multi-host TPU training needs more: a hung
-collective (dead peer, wedged chip) blocks forever with no exception,
+/ elastic recovery"). Multi-host training needs more: a hung
+collective (dead peer, wedged device) blocks forever with no exception,
 and a preempted worker must restart from persisted state, not step 0.
 
-This module supplies the standard TPU recipe:
+This module supplies the standard recipe:
 
 * :class:`ElasticTrainer` — a supervised training loop that writes
   step-numbered checkpoints (model + optimizer + step counter) every
@@ -20,7 +20,7 @@ This module supplies the standard TPU recipe:
   recovery loop.
 * :class:`Watchdog` — a monitor thread that hard-exits the process
   (``os._exit``) if the guarded region does not finish in time.
-  Python cannot interrupt a blocked XLA call, so fail-fast on TPU means
+  Python cannot interrupt a blocked XLA call, so fail-fast means
   process death by design; exit promptly and let the launcher respawn.
 * :func:`heartbeat` — a cross-process liveness probe: one tiny
   ``psum(1)`` over all participating processes under a watchdog. Run it

@@ -10,9 +10,11 @@ notion of placement is `.to(device)` single-GPU tensor placement
   ``parallel/sharded.py``).
 
 Meshes are plain ``jax.sharding.Mesh`` objects; nothing here is
-TPU-specific, so the same code runs on a virtual CPU mesh
+device-specific, so the same code runs on a virtual CPU mesh
 (``XLA_FLAGS=--xla_force_host_platform_device_count=N``) for tests and on
-pod slices in production (``jax.distributed.initialize`` + the same call).
+GPUs in production (one process per host, ``jax.distributed.initialize``
+across hosts). The GPUs of a host are joined all to all, so the mesh
+shape follows the algorithm, not a physical topology.
 """
 
 from __future__ import annotations

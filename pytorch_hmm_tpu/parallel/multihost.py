@@ -1,9 +1,9 @@
-"""Multi-host (pod-slice) initialization helpers.
+"""Multi-host initialization helpers.
 
-On a multi-host TPU pod slice every host runs the same program;
+On a multi-host cluster every host runs the same program;
 ``jax.distributed.initialize`` wires the hosts together and the global
-device list then spans all chips, with the ``time``-axis collectives
-riding ICI inside the slice. The reference framework has no multi-host
+device list then spans all devices, with the ``time``-axis collectives
+running over the interconnect. The reference framework has no multi-host
 notion at all (SURVEY.md §2.3).
 
 Fail-fast policy (SURVEY.md §5 "failure detection"): initialization
@@ -28,8 +28,9 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> dict:
-    """Join the distributed runtime (idempotent; TPU pods usually
-    auto-discover all three arguments from the environment).
+    """Join the distributed runtime (idempotent). Where no cluster
+    environment describes the job, pass all three arguments (for one host:
+    ``coordinator_address="localhost:<free port>"``).
 
     Returns a summary dict with global/local device counts.
     """

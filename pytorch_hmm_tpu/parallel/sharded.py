@@ -521,32 +521,23 @@ def sharded_scoring_log_likelihood(
     log_pi: jax.Array,
     mesh: Mesh,
 ) -> jax.Array:
-    """Batch-data-parallel LARGE-STATE scoring ``(B,)``: each device
-    runs the MXU-bound ``ops.bigk`` likelihood kernel on its batch
-    shard (K ≤ 512, scoring grade — bf16 observation streaming, see
-    ``ops/bigk.py``), so the 40%-MFU single-chip path scales linearly
-    over the ``data`` axis with zero communication (likelihoods are
-    embarrassingly batch-parallel; time stays whole per device because
-    the kernel's chain is the point).
-
-    Requirements: ``T % 128 == 0``, finite transitions (prob-space
-    envelope), and ``bigk_supported(K, B/ndata)`` per shard; otherwise
-    use :func:`sharded_log_likelihood` (exact, any K, time-sharded).
+    """Batch-data-parallel likelihood scoring ``(B,)``: each device runs
+    ``ops.auto_log_likelihood`` on its batch shard, with the whole time
+    axis, and no communication (likelihoods are independent per
+    sequence). For long sequences or few sequences per device use
+    :func:`sharded_log_likelihood`, which also shards time.
     """
-    from ..ops.bigk import bigk_log_likelihood
+    from ..ops import auto_log_likelihood
 
     has_data = DATA_AXIS in mesh.axis_names
     d = DATA_AXIS if has_data else None
 
-    def body(lo, la, lp):
-        return bigk_log_likelihood(lo, la, lp)
-
     return jax.shard_map(
-        body,
+        auto_log_likelihood,
         mesh=mesh,
         in_specs=(P(d, None, None), P(None, None), P(None)),
         out_specs=P(d),
-        # The pallas_call inside doesn't annotate vma on its out
-        # shapes; the mapping here is trivially batch-parallel.
+        # A pallas_call inside does not annotate vma on its out shapes;
+        # the mapping is trivially batch-parallel.
         check_vma=False,
     )(log_obs, log_a, log_pi)

@@ -11,10 +11,12 @@ training anywhere in it (SURVEY.md §2.3). Here training is SPMD over a
 * the time axis is sharded over ``time``: emission scoring is pointwise
   over frames so XLA keeps it sharded for free, and the forward
   recursion inside the loss runs on the block-parallel
-  ``sharded_log_likelihood`` kernel (boundary exchange over ICI).
+  ``sharded_log_likelihood`` (boundary exchange between devices).
 
 Works with any nnx model that exposes per-state emission scores and log
-transition parameters; adapters below cover the built-in layer types.
+transition parameters (adapters below cover the built-in layer types), or
+with a plain pytree of parameters and a ``parts_fn`` of its own; flax is
+imported only for nnx models.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import optax
-from flax import nnx
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .mesh import DATA_AXIS, TIME_AXIS
@@ -67,6 +68,14 @@ def hmm_loss_parts(model, obs: jax.Array):
     )
 
 
+def _is_nnx_module(model) -> bool:
+    try:
+        from flax import nnx
+    except ModuleNotFoundError:
+        return False
+    return isinstance(model, nnx.Module)
+
+
 def shard_batch(mesh: Mesh, obs: jax.Array) -> jax.Array:
     """Place a ``(B, T, ...)`` batch with B over ``data``, T over ``time``."""
     spec = [None] * obs.ndim
@@ -77,7 +86,7 @@ def shard_batch(mesh: Mesh, obs: jax.Array) -> jax.Array:
 
 
 def make_sharded_train_step(
-    model: nnx.Module,
+    model,
     tx: optax.GradientTransformation,
     mesh: Mesh,
     parts_fn: Callable = hmm_loss_parts,
@@ -86,7 +95,11 @@ def make_sharded_train_step(
 
     ``step_fn(params, rest, opt_state, obs) → (params, opt_state, loss)``
     is a pure jitted function: replicated parameters, ``(data, time)``-
-    sharded batch, mean-NLL loss through the block-parallel forward kernel.
+    sharded batch, mean-NLL loss through the block-parallel forward pass.
+
+    ``model`` is an nnx module, or a pytree of parameter arrays; for a
+    pytree, ``rest`` is None and ``parts_fn(params, obs)`` must return
+    ``(log_obs, log_a, log_pi)``.
 
     Usage::
 
@@ -97,7 +110,19 @@ def make_sharded_train_step(
                 params, rest, opt_state, shard_batch(mesh, batch))
         nnx.update(model, params)
     """
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    if _is_nnx_module(model):
+        from flax import nnx
+
+        graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+
+        def parts(params, rest, obs):
+            return parts_fn(nnx.merge(graphdef, params, rest), obs)
+    else:
+        params, rest = model, None
+
+        def parts(params, rest, obs):
+            return parts_fn(params, obs)
+
     opt_state = tx.init(params)
     repl = NamedSharding(mesh, P())
 
@@ -105,8 +130,7 @@ def make_sharded_train_step(
     opt_state = jax.device_put(opt_state, repl)
 
     def loss_fn(params, rest, obs):
-        m = nnx.merge(graphdef, params, rest)
-        log_obs, log_a, log_pi = parts_fn(m, obs)
+        log_obs, log_a, log_pi = parts(params, rest, obs)
         ll = sharded_log_likelihood(log_obs, log_a, log_pi, mesh)
         return -jnp.mean(ll)
 

@@ -6,32 +6,25 @@ The reference declares ``Config.USE_MIXED_PRECISION`` and
 are live:
 
 * **Mixed precision** (``USE_MIXED_PRECISION``, default ON): governs
-  the multiply dtype of every emission-scoring contraction and neural
-  emission/transition net. TPU hardware fact: XLA's *default* f32
-  ``dot_general`` already runs as ONE bfloat16 multiply pass on the MXU
-  with float32 accumulation — "f32 matmul" at default precision IS
-  mixed precision on TPU. So:
+  the multiply precision of every emission-scoring contraction and neural
+  emission/transition net.
 
-  - ON  → contractions run at default precision (bf16 multiplies, f32
-    accumulation). Measured at the flagship emission shape
-    (B=32 T=1000 D=80 S·C=48 on v5e): 0.016 ms.
-  - OFF → contractions request ``jax.lax.Precision.HIGHEST`` (six-pass
-    true-f32 multiplies): exact f32 math, measured 0.027 ms at the same
-    shape (~1.65x) and ~1.2x at bandwidth-bound shapes.
+  - ON  → contractions run at XLA's default precision. On an NVIDIA
+    Hopper card a float32 ``dot_general`` at default precision runs on
+    the tensor cores in TF32 (10-bit mantissa multiplies, float32
+    accumulation); on the CPU it is plain float32.
+  - OFF → contractions request ``jax.lax.Precision.HIGHEST``: true
+    float32 multiplies everywhere.
 
   Explicitly passing ``compute_dtype=jnp.bfloat16`` to an emission
   function additionally casts the *operands* to bf16 (halving their
-  HBM footprint) — useful when activations are bandwidth-bound, but
-  measured slightly slower at the flagship shapes (cast overhead), so
-  the flag alone never does it.
+  memory traffic); the flag alone never does it.
 
-  Error bound (measured, ``tests/test_precision.py``): bf16 multiply
-  rounding is 2^-9 relative per product with exact f32 accumulation;
-  per-frame GMM log-prob error is O(0.01-0.5) absolute at D=80 speech
-  shapes, perturbing Viterbi paths only at genuinely ambiguous frames
-  (measured path agreement 1.000 at the flagship config). All DP
-  carries (alpha/beta/delta recursions) are float32 under EITHER
-  setting — only multiplier precision changes.
+  Error bound: TF32 rounds each product to ~2^-11 relative with float32
+  accumulation, so per-frame GMM log-probs move by O(0.01-0.1) absolute
+  at D=80 speech shapes, which can flip Viterbi paths only at genuinely
+  ambiguous frames. All DP carries (alpha/beta/delta recursions) are
+  float32 under EITHER setting — only multiplier precision changes.
 
 * **Checkpointing** (``USE_CHECKPOINTING``, default ON): gradient paths
   wrap emission scoring in ``jax.checkpoint`` so the ``(B, T, S[, C])``
@@ -93,20 +86,17 @@ def set_checkpointing(enabled: bool) -> None:
 
 
 def compute_dtype(override: Optional[jnp.dtype] = None) -> jnp.dtype:
-    """The dtype emission contractions should treat as their multiply
-    precision. ``override`` wins when given. Otherwise: bfloat16 when
-    mixed precision is on AND the backend is TPU (where bf16 multiplies
-    are the MXU's native fast path), else float32."""
+    """The dtype emission contractions should treat as their operand
+    precision: ``override`` when given, else float32 (the mixed-precision
+    flag picks the multiply precision, not the operand dtype)."""
     if override is not None:
         return jnp.dtype(override)
-    if _MIXED_PRECISION and jax.default_backend() == "tpu":
-        return jnp.dtype(jnp.bfloat16)
     return jnp.dtype(jnp.float32)
 
 
 def matmul_precision() -> Optional[jax.lax.Precision]:
     """Precision request for flax layers / raw dots, resolved from the
-    flag: ``None`` (backend default — bf16 passes on TPU) when mixed
+    flag: ``None`` (backend default — TF32 on the GPU) when mixed
     precision is on, ``Precision.HIGHEST`` (true f32) when off."""
     if _MIXED_PRECISION:
         return None
@@ -120,22 +110,21 @@ def mxu_einsum(
 ) -> jax.Array:
     """``jnp.einsum`` under the precision policy; output always f32.
 
-    * flag ON, no override → default precision (bf16 multiply passes on
-      TPU, f32 accumulation; plain f32 everywhere else). No casts — the
-      fastest measured path.
+    * flag ON, no override → default precision (TF32 multiplies with f32
+      accumulation on the GPU; plain f32 on the CPU). No casts.
     * flag OFF (or explicit ``dtype=float32``) → true-f32 multiplies
       (``Precision.HIGHEST``).
     * explicit ``dtype=bfloat16`` → operands cast to bf16 (halved HBM
       footprint) with f32 accumulation.
     """
     dt = compute_dtype(dtype)
-    if dt == jnp.bfloat16:
-        if dtype is not None:  # explicit bf16 storage request
-            ops = [x.astype(dt) for x in operands]
-            return jnp.einsum(
-                spec, *ops, preferred_element_type=jnp.float32
-            )
-        return jnp.einsum(spec, *operands)
+    if dt == jnp.bfloat16:  # explicit bf16 storage request
+        ops = [x.astype(dt) for x in operands]
+        return jnp.einsum(spec, *ops, preferred_element_type=jnp.float32)
+    if dtype is None and _MIXED_PRECISION:
+        return jnp.einsum(
+            spec, *operands, preferred_element_type=jnp.float32
+        )
     return jnp.einsum(
         spec, *operands, precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,

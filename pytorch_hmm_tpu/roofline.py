@@ -1,417 +1,78 @@
-"""Roofline accounting for the benchmark workloads (VERDICT r2 item 1).
+"""Roofline accounting against the published peaks of the card a run is on.
 
-For each bench row this computes the time each hardware resource would
-need at its ceiling — HBM bandwidth, MXU throughput, and (for the
-serial DP scans) the dependent-step latency chain — and reports the
-binding ceiling and the measured fraction of it. The point is to make
-"speed-of-light" a number: a row at 0.9 of its binding ceiling is done;
-a row at 0.1 has a known amount on the table.
+For a measured call, ``roofline`` computes the least time the device could
+take — the larger of the bytes over peak memory bandwidth and the matrix
+operations over peak matmul rate — and reports which of the two binds and
+the measured fraction of that bound. Peaks are keyed by JAX's
+``device_kind``; a device not in the table is an error, never a default.
 
-Chip model (TPU v5e, 1 core):
-
-* ``HBM_BW`` 819 GB/s.
-* ``MXU_BF16`` 197 TFLOP/s (f32 inputs at DEFAULT precision run as one
-  bf16 pass, so this is also the default-f32 matmul ceiling);
-  ``MXU_F32`` ≈ 197/6 for ``Precision.HIGHEST`` (six passes).
-* ``SERIAL_STEP`` 190 ns: the measured floor of one dependent
-  ``(B≤32, K≤128) @ (K, K)`` MXU dot + elementwise multiply inside a
-  fully-unrolled Pallas frame loop (experiments/fwd_floor.py; rescale
-  cadence rs=16/32 both measure 190-192 ns/frame). Any algorithm that
-  must execute T dependent combines pays ``T × SERIAL_STEP`` no matter
-  how little arithmetic each step does — on this workload family the
-  binding resource is usually this latency chain, not bandwidth or
-  FLOPs.
-* ``SERIAL_STEP_SMALLK`` 100 ns: measured per-step cost of the
-  transposed-layout (states-on-sublanes) decode kernels at S ≤ 32,
-  averaged over their trellis (~130 ns) and gather-backtrace (~70 ns)
-  chains (ops/smallk.py at the flagship shape) — a tighter floor for
-  the small-state decode family; their VPU max-trees avoid the MXU dot.
-* ``STEP_PAIR_DECODE`` 157 ns: the r5 T-sweep of the full transposed
-  decode (trellis + backtrace chains together) at the bench family
-  shape (experiments/hsmm_floor.py: 152-157 ns/frame-pair flat over
-  T=500..4000). This SUPERSEDES 2×SERIAL_STEP_SMALLK for whole-decode
-  rows — the kernel itself now beats the older 200 ns/pair estimate,
-  so ceilings using it are TIGHTER (fracs drop; that is the honest
-  direction).
-* ``STEP_PAIR_HSMM_RING`` 250 ns: same sweep, the duration-ring
-  segment-DP decode — flat 251±1 ns/frame-pair over T=500..2000
-  (214 ns/pair fitted asymptote at T=4000). The gap to the plain
-  decode pair is the ring itself: three (Ds, Ss, Bp) ring updates +
-  Ds-slot lse/max trees per frame (~4 dependent sublane tiles vs the
-  plain trellis's one) — per-frame work with zero amortizable
-  overhead, so it is the measured floor of this algorithm family
-  (VERDICT r4 item 4: promoted from the r4 T-sweep note into the
-  model).
-
-These are *measured floors on this chip*, not theoretical minima: they
-already include Mosaic's loop/issue overhead, so "100% of ceiling"
-means "as fast as the best measured minimal chain", which is the
-honest comparison for deciding whether further kernel work can pay.
-
-``audit`` additionally reports ``mfu_pct`` — achieved fraction of the
-chip's bf16 matmul peak — on every row that models MXU work; it is the
-headline number for the MXU-bound rows (``bigk_forward_ll...``) and
-structurally ~0 for the latency-chain rows.
+The serial HMM recursions are bound by neither: a chain of T dependent
+small steps is latency-bound, so their roofline fraction is near 0 by
+construction. Name that bound for what it is; do not read a small fraction
+there as headroom a matmul kernel could take.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
-__all__ = ["V5E", "audit", "BENCH_MODELS"]
+__all__ = ["PEAKS", "peaks", "roofline"]
 
-V5E = {
-    "hbm_bw": 819e9,          # bytes/s
-    "mxu_bf16": 197e12,       # FLOP/s, DEFAULT precision
-    "mxu_f32": 197e12 / 6.0,  # FLOP/s, Precision.HIGHEST
-    "vpu_f32": 3.8e12,        # elementwise FLOP/s (4 ALUs x (8,128) x 940 MHz)
-    "serial_step": 190e-9,    # s, lane-layout dependent dot+mul floor
-    # Same minimal chain with Precision.HIGHEST dots (six bf16 passes
-    # on the chain): measured 228.6 ns/frame (experiments/fwd_floor.py
-    # variant A, r5 re-run). This resolved the r4 "chip drift" mystery
-    # on the long-context row: the 29 ms r3 figure was the
-    # DEFAULT-precision kernel; r4 made auto_forward posterior-grade
-    # (HIGHEST), whose floor is simply higher — same-session A/B:
-    # DEFAULT 29.3 ms / HIGHEST 33.1 ms at (B=32, T=131072, K=64).
-    "serial_step_hi": 229e-9,
-    "serial_step_smallk": 100e-9,  # s, transposed small-S decode floor
-    # r5 whole-decode T-sweeps (experiments/hsmm_floor.py); see module
-    # docstring. Units: seconds per frame-PAIR (both chains of a
-    # decode: DP step + backtrace step).
-    "step_pair_decode": 157e-9,
-    "step_pair_hsmm_ring": 250e-9,
-    # Beam family frame-pair floors (experiments/beam_floor.py r5:
-    # variant C beam-update slope + variant E backtrace slope). The
-    # beam body's chain is a real (W8, Sl) MXU dot (~173 ns bare at
-    # N=1) + tree/rank vreg work; N vectorizes on the same chain with
-    # mild growth. These replace the r4 "conservative bound" that
-    # scored the streaming rows at 0.22/0.39 of a floor nothing could
-    # reach (VERDICT r4 item 2).
-    "step_pair_beam1": 306e-9,    # C 220 + E 86 (measured)
-    "step_pair_beam8": 411e-9,    # C 266 + E 145 (measured)
-    # N=16's minimal-chain kernel exceeds practical Mosaic compile
-    # budgets (full-unroll live-window), so this is EXTRAPOLATED from
-    # the N=1→8 sublinear growth of C and E. Closing attempts so far:
-    # unroll width A/B'd (8/16/32 equal — not the gap); per-frame
-    # <=8-stream GROUPING of the beam update (bounds the (N, Sp, Sl)
-    # temporaries that spill vregs) took the chunk 0.132 -> 0.121 ms.
-    # The production marginal cost is now ~730 ns/frame-pair, so the
-    # 16x row's fraction (~0.74 against this floor) still reads as
-    # real remaining headroom.
-    "step_pair_beam16": 540e-9,
+# Published dense peaks, NVIDIA H200 SXM data sheet (no sparsity), at its
+# full 700 W power limit: HBM3e 4.8 TB/s; tensor cores 989 TFLOP/s in
+# bf16/fp16 and 495 TFLOP/s in TF32; 67 TFLOP/s float32 outside the
+# tensor cores.
+PEAKS: Dict[str, Dict[str, float]] = {
+    "NVIDIA H200": {
+        "hbm_bytes_per_s": 4.8e12,
+        "bf16_flops": 989e12,
+        "tf32_flops": 495e12,
+        "fp32_flops": 67e12,
+    },
 }
 
 
-def _ceil_times(
+def peaks(device_kind: str) -> Dict[str, float]:
+    """The published peaks of ``device_kind`` (``jax.devices()[0]
+    .device_kind``). Raises ``KeyError`` for a device not in the table."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device {device_kind!r}; add them to "
+            "pytorch_hmm_tpu.roofline.PEAKS with their source"
+        ) from None
+
+
+def roofline(
+    measured_s: float,
+    device_kind: str,
     hbm_bytes: float = 0.0,
-    mxu_flops: float = 0.0,
-    vpu_flops: float = 0.0,
-    serial_steps: float = 0.0,
-    smallk: bool = False,
-    f32_mxu: bool = False,
-    pair_steps: float = 0.0,
-    pair: str = "decode",
-    mxu_rows: Optional[int] = None,
-    hi_chain: bool = False,
+    matmul_flops: float = 0.0,
+    matmul_rate: str = "tf32_flops",
 ) -> Dict[str, float]:
-    if smallk:
-        step = V5E["serial_step_smallk"]
-    elif hi_chain:
-        step = V5E["serial_step_hi"]
-    else:
-        step = V5E["serial_step"]
-    mxu = V5E["mxu_f32"] if f32_mxu else V5E["mxu_bf16"]
-    if mxu_rows is not None:
-        # Row-utilization-capped MXU ceiling: a (B, K) @ (K, K) chain
-        # feeds only B of the MXU's 128 rows per pass.
-        mxu = mxu * min(1.0, mxu_rows / 128.0)
-    return {
-        "hbm_s": hbm_bytes / V5E["hbm_bw"],
-        "mxu_s": mxu_flops / mxu,
-        "vpu_s": vpu_flops / V5E["vpu_f32"],
-        # ``serial_steps`` uses the per-chain-step constants;
-        # ``pair_steps`` uses the whole-decode frame-pair sweeps
-        # (step_pair_decode / step_pair_hsmm_ring).
-        "serial_s": serial_steps * step
-        + pair_steps * V5E[f"step_pair_{pair}"],
+    """Bound and achieved share for one measured call.
+
+    ``hbm_bytes`` is the unavoidable device-memory traffic (inputs read
+    once, outputs written once); ``matmul_flops`` the matrix operations,
+    charged at ``matmul_rate`` (a key of the peaks table: float32 matmuls
+    at default precision run in TF32 on the tensor cores). Returns the
+    binding resource, the bound in ms, the measured fraction of it, and
+    ``mfu_pct`` (achieved matmul rate over its peak) when there is matmul
+    work.
+    """
+    p = peaks(device_kind)
+    times = {
+        "hbm": hbm_bytes / p["hbm_bytes_per_s"],
+        "matmul": matmul_flops / p[matmul_rate],
     }
-
-
-# Resource models for the bench rows (shapes fixed by bench.py).
-# hbm_bytes counts the unavoidable traffic: inputs read once, outputs
-# written once (intermediates that stay in VMEM are excluded).
-BENCH_MODELS = {
-    # B=32 T=1000 S=12 C=4 D=80, diag GMM decode. Two sequential
-    # program segments: the emission scoring dispatch (obs -> (B,T,S)
-    # log scores; HBM + a small GEMM) and the decode kernel, whose
-    # measured whole-decode floor is the r5 T-sweep pair constant
-    # (157 ns/frame-pair — TIGHTER than the old 2x100 ns estimate, so
-    # this row's frac drops vs r4). r5 piece profile: emission 0.050 +
-    # decode 0.160 + 0.035 glue (the (B,T,S) round trip + dispatch
-    # latency). Both fusion escapes were A/B'd this round and LOST:
-    # emission->trellis fusion measured 0.62 ms (2.6x slower — the
-    # trellis chain stalls the MXU tiles), and an in-kernel
-    # mixture-lse epilogue (xor-partner roll tree + compensated
-    # one-hot compaction) measured ~2x the two-pass emission in
-    # isolation (the roll-tree transcendentals cost more on the VPU
-    # than XLA's fused lse pass over the small (B,T,S*C) table).
-    # ~0.74 is the defended state of this row.
-    "mixture_gaussian_hmm_decode_rtf_b32_T1000_s12_c4_d80": dict(
-        dispatches=[
-            dict(  # emission scoring
-                hbm_bytes=32e3 * 80 * 4 + 32e3 * 12 * 4,
-                mxu_flops=2 * 32e3 * 80 * 48,
-            ),
-            dict(  # decode kernel (trellis + backtrace)
-                hbm_bytes=32e3 * 12 * 4 + 32e3 * 4,
-                pair_steps=1000,
-            ),
-        ],
-    ),
-    # B=32 T=1000 S=10 D=20 HSMM segment DP. The decode segment's
-    # ceiling is the measured duration-ring frame-pair floor (250 ns,
-    # experiments/hsmm_floor.py r5 — flat over T=500..2000, zero
-    # amortizable overhead; VERDICT r4 item 4 promoted it from a note
-    # into the model).
-    "hsmm_decode_rtf_b32_T1000_s10_d20": dict(
-        dispatches=[
-            dict(  # Gaussian emission scoring
-                hbm_bytes=32e3 * 80 * 4 + 32e3 * 10 * 4,
-                mxu_flops=2 * 32e3 * 80 * 10,
-            ),
-            dict(  # ring segment-DP kernel
-                hbm_bytes=32e3 * 10 * 4 + 32e3 * 4,
-                pair_steps=1000,
-                pair="hsmm_ring",
-            ),
-        ],
-    ),
-    # chunk=160 S=12 D=80 streaming beam step. The kernel segment's
-    # ceiling is the MEASURED beam-family frame-pair floor
-    # (experiments/beam_floor.py: beam update + backtrace chains) —
-    # the r4 "conservative bound" is gone. The emission MLP (80→128→12)
-    # and the XLA finalize (path merge/rolls on the (W, H) history)
-    # are the other two sequential segments.
-    "streaming_chunk_p50_s12_d80_beam": dict(
-        dispatches=[
-            dict(  # emission MLP for the chunk
-                hbm_bytes=160 * 80 * 4 + 160 * 12 * 4,
-                mxu_flops=2 * 160 * (80 * 128 + 128 * 12),
-            ),
-            dict(pair_steps=160, pair="beam1",
-                 hbm_bytes=160 * 12 * 4),
-            dict(hbm_bytes=8 * 8 * 1000 * 4),  # finalize path merge
-        ],
-    ),
-    # 8/16 concurrent streams share the SAME per-frame chain (the
-    # stream axis vectorizes; the measured floor grows mildly with N).
-    "multi_stream_8x_chunk_p50_s12_d80_beam": dict(
-        dispatches=[
-            dict(
-                hbm_bytes=8 * (160 * 80 * 4 + 160 * 12 * 4),
-                mxu_flops=8 * 2 * 160 * (80 * 128 + 128 * 12),
-            ),
-            dict(pair_steps=160, pair="beam8",
-                 hbm_bytes=8 * 160 * 12 * 4),
-            dict(hbm_bytes=8 * 8 * 8 * 1000 * 4),
-        ],
-    ),
-    "multi_stream_16x_chunk_p50_s12_d80_beam": dict(
-        dispatches=[
-            dict(
-                hbm_bytes=16 * (160 * 80 * 4 + 160 * 12 * 4),
-                mxu_flops=16 * 2 * 160 * (80 * 128 + 128 * 12),
-            ),
-            dict(pair_steps=160, pair="beam16",
-                 hbm_bytes=16 * 160 * 12 * 4),
-            dict(hbm_bytes=16 * 8 * 8 * 1000 * 4),
-        ],
-    ),
-    # B=16 T=1000 S=12 H=256 NeuralHMM forward-backward. Three
-    # sequential dispatches: the emission trunk+head (MXU), the fused
-    # bidirectional FB kernel (ops/fbsum.py — BOTH chains interleave in
-    # ONE 1000-step program, so the serial term is T, not 2T), and the
-    # posterior conditioning/exp pass (HBM).
-    "neural_hmm_forward_rtf_b16_T1000_s12_h256": dict(
-        dispatches=[
-            dict(  # fused emission kernel (ops/emit_mlp.py): one obs
-                # read/score write; mxu counts the logical trunk at one
-                # bf16 pass PLUS the lane-padded (128-wide at S=12)
-                # three-pass compensated head dots — padding to the
-                # 128-lane grid is a hardware fact any kernel pays, and
-                # single-pass heads were measured 0.33 absolute off.
-                hbm_bytes=16e3 * 80 * 4 + 16e3 * 12 * 4,
-                mxu_flops=2 * 16e3 * (80 * 256 + 256 * 256 + 2 * 256 * 80)
-                + 3 * 3 * 2 * 16e3 * 128 * 128,
-            ),
-            dict(  # fused fb: alpha+beta in one interleaved chain
-                hbm_bytes=3 * 16e3 * 12 * 4,
-                serial_steps=1000,
-                smallk=True,
-            ),
-            dict(  # layout glue + conditioning + gamma/exp outputs.
-                # The transposed small-K kernel layout (states on
-                # sublanes, batch on lanes — what buys the 100 ns
-                # chain step; the unpadded lane-layout kernel measured
-                # ~4x slower serially) pads B=16 to the 128-lane grid,
-                # so the kernel-side transpose write and the two
-                # alpha/beta readbacks move PADDED (Tp, Ss, Bp) bytes;
-                # plus the logical conditioning/lse/exp passes.
-                hbm_bytes=3 * 1000 * 16 * 128 * 4
-                + 6 * 16e3 * 12 * 4,
-            ),
-        ],
-    ),
-    # B=32 T=131072 K=64 long-context forward (prob-space kernel,
-    # posterior-grade: HIGHEST dots on the chain — see serial_step_hi).
-    "long_context_forward_rtf_b32_T131072_k64": dict(
-        hbm_bytes=2 * 32 * 131072 * 64 * 4,  # obs in + alpha out
-        mxu_flops=2 * 32 * 131072 * 64 * 64,
-        serial_steps=131072,
-        hi_chain=True,
-    ),
-    # B=32 T=131072 K=64 long-context gradient: one fused fb kernel
-    # pass (alpha+beta interleaved — serial term is T, not 2T) plus the
-    # posterior/xi assembly, which XLA fuses into streaming reductions:
-    # ~3 exp-class VPU ops per (B,T,K,K) xi element dominate it.
-    "long_context_grad_rtf_b32_T131072_k64": dict(
-        dispatches=[
-            dict(  # fused fb: lo in, alpha+beta out (HIGHEST chain)
-                hbm_bytes=3 * 32 * 131072 * 64 * 4,
-                mxu_flops=2 * 2 * 32 * 131072 * 64 * 64,
-                serial_steps=131072,
-                hi_chain=True,
-            ),
-            dict(  # gamma + xi assembly (streaming, no (B,T,K,K) buf).
-                # 2.0 exp-class VPU ops per (B,T,K,K) xi element: the
-                # r4 3.0 estimate plus the corrected HIGHEST fb-chain
-                # floor summed past the measured total (frac 1.04 —
-                # impossible), so the assembly term is recalibrated to
-                # what the same-session measurement admits.
-                hbm_bytes=4 * 32 * 131072 * 64 * 4,
-                vpu_flops=2.0 * 32 * 131071 * 64 * 64,
-            ),
-        ],
-    ),
-    # B=24 T=800 S=10 D=20 semi-Markov decode (same ring family as the
-    # HSMM row — measured pair floor).
-    "semi_markov_decode_rtf_b24_T800_s10_d20": dict(
-        dispatches=[
-            dict(
-                hbm_bytes=24 * 800 * 80 * 4 + 24 * 800 * 10 * 4,
-                mxu_flops=2 * 24 * 800 * 80 * 10,
-            ),
-            dict(
-                hbm_bytes=24 * 800 * 10 * 4 + 24 * 800 * 4,
-                pair_steps=800,
-                pair="hsmm_ring",
-            ),
-        ],
-    ),
-    # B=16 T=500 C=40 U=50 CTC forced alignment (banded lattice,
-    # S = 2U+1 = 101 lattice states; serial over T).
-    "ctc_forced_alignment_rtf_b16_T500_c40_u50": dict(
-        hbm_bytes=16 * 500 * 40 * 4 + 2 * 16 * 500 * 101 * 4
-        + 16 * 500 * 4,
-        mxu_flops=0.0,
-        serial_steps=2 * 500,  # alpha chain + backtrace chain
-        smallk=True,
-    ),
-    # 500x500 D=80 DTW (wavefront over 2N-1 anti-diagonals + backtrace).
-    "dtw_alignment_rtf_T500x500_d80": dict(
-        hbm_bytes=2 * 500 * 80 * 4 + 500 * 500 * 4,
-        mxu_flops=2 * 500 * 500 * 80,
-        serial_steps=2 * 999,  # wavefront + backtrace chains
-        smallk=True,
-    ),
-    # B=32 T=1000 S=12 C=4 D=80 FULL-covariance GMM decode. Unlike the
-    # diag row (whose emission GEMM is ~1 µs, lost in the trellis), the
-    # precision-form quadratic is ~0.1 ms of REAL MXU work that runs as
-    # its own dispatch BEFORE the serial trellis — fusing it in was
-    # measured 2.5x slower (the trellis chain stalls the MXU tiles), so
-    # the honest floor is the SUM of the two dispatch ceilings, not
-    # their max: ``dispatches`` entries are sequential program segments
-    # whose binding ceilings add.
-    "mixture_gaussian_full_cov_decode_rtf_b32_T1000_s12_c4_d80": dict(
-        dispatches=[
-            dict(  # emission: xPx quadratic over 48 (80,80) precisions
-                hbm_bytes=32e3 * 80 * 4 + 32e3 * 48 * 4,
-                mxu_flops=2 * 32e3 * 48 * 80 * 80,
-            ),
-            dict(  # decode kernel on (B,T,S) scores (r5 pair floor)
-                hbm_bytes=2 * 32e3 * 12 * 4 + 32e3 * 4,
-                pair_steps=1000,
-            ),
-        ],
-    ),
-    # B=48 T=2048 K=512 MXU-bound likelihood (ops/bigk.py). Segment 1
-    # is the host-side prep pass (max/exp/transpose/bf16-cast: read
-    # f32 obs + write bf16 stream); segment 2 is the kernel, whose
-    # binding resource is REAL matmul throughput (2BK^2 per frame at
-    # DEFAULT precision). mfu_pct on this row is the judged number.
-    "bigk_forward_ll_b48_T2048_k512": dict(
-        dispatches=[
-            dict(hbm_bytes=48 * 2048 * 512 * (4 + 2)),
-            dict(
-                hbm_bytes=48 * 2048 * 512 * 2,
-                mxu_flops=2.0 * 48 * 512 * 512 * 2048,
-            ),
-        ],
-    ),
-    # B=4 T=2048 C=100 U=1000 CTC forced alignment at the S = 2U+1 =
-    # 2001 lattice cap. r5 history: the XLA scan fallback ran this at
-    # 4.1-6.2 ms (committed U-sweep: cost flat in S, ~1.8 us/frame
-    # base); the streaming wide Viterbi pair (batch packed on
-    # sublanes, choices streamed to HBM, choice-chase backtrace —
-    # ops/ctc_kernel.py ctc_lattice_viterbi_wide) replaced it at
-    # ~1.1 ms, path-exact. Segments: the gather+layout glue moves
-    # ~5 (B,T,Sp)-sized HBM passes; the two chains are charged at the
-    # measured decode-family pair floor (the wide 2-D tile body's own
-    # measured marginal cost is ~337 ns/frame-pair at T=1024, so the
-    # frac against this floor reports real remaining headroom).
-    "ctc_forced_alignment_rtf_b4_T2048_c100_u1000": dict(
-        dispatches=[
-            dict(hbm_bytes=5 * 4 * 2048 * 2048 * 4),
-            dict(pair_steps=2048, hbm_bytes=4 * 2048 * 4),
-        ],
-    ),
-}
-
-
-def audit(metric: str, measured_s: float) -> Optional[Dict[str, float]]:
-    """Ceiling report for a bench row: per-resource ceiling times, the
-    binding (slowest) ceiling, and measured/binding fraction (1.0 =
-    at the measured hardware floor)."""
-    model = BENCH_MODELS.get(metric)
-    if model is None:
-        return None
-    segments = model.get("dispatches") or [model]
-    binding = 0.0
-    binding_names = []
-    total = {"hbm_s": 0.0, "mxu_s": 0.0, "serial_s": 0.0}
-    mxu_flops = 0.0
-    for seg in segments:
-        times = _ceil_times(**seg)
-        name = max(times, key=times.get)
-        binding += times[name]
-        binding_names.append(name.removesuffix("_s"))
-        for k in total:
-            total[k] += times[k]
-        mxu_flops += seg.get("mxu_flops", 0.0)
+    binding = max(times, key=times.get)
+    measured_s = max(measured_s, 1e-12)
     out = {
-        "binding": "+".join(binding_names),
-        "ceiling_ms": round(binding * 1e3, 4),
-        "frac_of_ceiling": round(binding / max(measured_s, 1e-12), 3),
-        "hbm_ms": round(total["hbm_s"] * 1e3, 4),
-        "mxu_ms": round(total["mxu_s"] * 1e3, 4),
-        "serial_ms": round(total["serial_s"] * 1e3, 4),
+        "binding": binding,
+        "bound_ms": times[binding] * 1e3,
+        "frac_of_bound": times[binding] / measured_s,
     }
-    if mxu_flops:
-        # Achieved fraction of the chip's bf16 matmul peak. Structurally
-        # ~0 for the latency-chain rows; the headline number for the
-        # MXU-bound rows.
-        out["mfu_pct"] = round(
-            100.0 * mxu_flops / max(measured_s, 1e-12) / V5E["mxu_bf16"],
-            1,
-        )
+    if matmul_flops:
+        out["mfu_pct"] = 100.0 * matmul_flops / measured_s / p[matmul_rate]
     return out

@@ -6,7 +6,7 @@ greedy or beam search carrying decoder state across chunks, async thread
 wrapper, perf stats, latency auto-tuning) plus
 ``AdaptiveLatencyController`` and the ``StreamingResult`` dataclass.
 
-TPU-first design (SURVEY.md §7 principle 4):
+Design (SURVEY.md §7 principle 4):
 
 * the decoder step is a **pure jit-compiled function**
   ``(carry, features) → (carry, outputs)`` with an explicit, fixed-shape
@@ -431,62 +431,8 @@ def _emit(feats, w1, b1, w2, b2):
     return jax.nn.log_softmax(h @ w2 + b2, axis=-1)
 
 
-def _use_stream_kernels(num_states, t, beam_width=1, history=1) -> bool:
-    import os
-
-    from .ops.stream import stream_chunk_supported
-
-    return (
-        os.environ.get("PYTORCH_HMM_TPU_NO_PALLAS") != "1"
-        and jax.default_backend() == "tpu"
-        and stream_chunk_supported(num_states, t, beam_width, history)
-    )
-
-
-def _greedy_step(log_a, log_obs, n_valid, carry):
-    """Frame-greedy chunk decode; Pallas chunk kernel on TPU (the XLA
-    scan's tiny per-frame ops are latency-bound at ~2.7 µs/frame), XLA
-    scan elsewhere. Outputs are bit-identical on both paths."""
-    if _use_stream_kernels(log_a.shape[0], log_obs.shape[0]):
-        from .ops.stream import pallas_greedy_chunk
-
-        return pallas_greedy_chunk(log_a, log_obs, n_valid, carry)
-    return _greedy_step_xla(log_a, log_obs, n_valid, carry)
-
-
-def _beam_step(log_a, log_obs, n_valid, carry):
-    """Fixed-width beam chunk decode; Pallas chunk kernel on TPU, XLA
-    scan elsewhere. Outputs are bit-identical on both paths.
-
-    The kernel path is the MULTI-stream kernel at N=1
-    (``ops/stream_multi.py``): its mask-reduce rank block replaces the
-    older kernel's per-frame one-hot MXU dots on the serial chain —
-    measured 0.069 vs 0.084 ms per 160-frame chunk even single-stream.
-    """
-    paths = carry[2]
-    W, H = paths.shape
-    from .ops.stream_multi import multi_stream_supported
-
-    if _use_stream_kernels(log_a.shape[0], log_obs.shape[0], W, H) and \
-            multi_stream_supported(1, log_a.shape[0], log_obs.shape[0],
-                                   W, H):
-        from .ops.stream_multi import pallas_beam_chunk_multi
-
-        sc, ls, pt, pl_ = carry
-        carry1 = (sc[None], ls[None], pt[None],
-                  jnp.asarray(pl_, jnp.int32)[None])
-        nsc, nls, npt, npl = pallas_beam_chunk_multi(
-            log_a, log_obs[None], n_valid, carry1
-        )
-        new_carry = (nsc[0], nls[0], npt[0],
-                     npl[0].astype(jnp.asarray(pl_).dtype))
-        return _beam_finalize(new_carry, carry[0], log_obs.shape[0],
-                              n_valid)
-    return _beam_step_xla(log_a, log_obs, n_valid, carry)
-
-
 @jax.jit
-def _greedy_step_xla(log_a, log_obs, n_valid, carry):
+def _greedy_step(log_a, log_obs, n_valid, carry):
     """Frame-greedy decoding continuing from the carried state
     (``streaming.py:267-320`` semantics: argmax per frame given the
     previous chosen state, not a full Viterbi)."""
@@ -506,8 +452,6 @@ def _greedy_step_xla(log_a, log_obs, n_valid, carry):
         new_has = has | valid
         return (new_prev, new_has, t + 1), (s, sc)
 
-    # unroll amortizes the TPU while-loop dispatch (~2 µs/step rolled)
-    # across fused frame bodies — the chunk step is latency-bound.
     (prev_state, has_prev, _), (states, scores) = jax.lax.scan(
         step, (prev_state, has_prev, jnp.int32(0)), log_obs, unroll=16
     )
@@ -516,7 +460,7 @@ def _greedy_step_xla(log_a, log_obs, n_valid, carry):
 
 @functools.partial(jax.jit, static_argnames=("t_pad",))
 def _beam_finalize(new_carry, scores_before, t_pad, n_valid):
-    """Post-scan bookkeeping shared by the XLA and Pallas beam paths:
+    """Post-scan bookkeeping of the beam step:
     best-path extraction, per-span confidence, score renormalization."""
     scores, last_states, paths, path_len = new_carry
     H = paths.shape[1]
@@ -542,51 +486,16 @@ def _beam_finalize(new_carry, scores_before, t_pad, n_valid):
 
 
 @jax.jit
-def _beam_step_xla(log_a, log_obs, n_valid, carry):
+def _beam_step(log_a, log_obs, n_valid, carry):
     """Fixed-width beam search with carried hypotheses
     (``streaming.py:322-377``)."""
-    S = log_a.shape[0]
-    scores, last_states, paths, path_len = carry
-    W, H = paths.shape
     # Carried scores are renormalized (max-subtracted) at the end of each
     # chunk, so they never drift toward -inf on long streams; confidence
     # comes from the per-span score delta, not the unbounded joint.
-    score_before = jnp.max(scores)
-
-    def step(c, xs):
-        sc, ls, pt, pl, t = c
-        lo_t = xs
-        first = sc[:, None] + lo_t[None, :]                      # (W, S)
-        cont = sc[:, None] + log_a[ls] + lo_t[None, :]
-        table = jnp.where(pl == 0, first, cont)                  # (W, S)
-        # Hypotheses in the same state are redundant (Markov property):
-        # keep only the best parent per state, THEN take the top-W
-        # states. A flat top_k over (W·S) would fill the beam with
-        # tied duplicates of one state, silently collapsing the beam
-        # to width 1.
-        best_per_state = jnp.max(table, axis=0)                  # (S,)
-        parent_per_state = jnp.argmax(table, axis=0)             # (S,)
-        top, new_state = jax.lax.top_k(best_per_state, W)
-        new_state = new_state.astype(jnp.int32)
-        parent = parent_per_state[new_state].astype(jnp.int32)
-        # Roll the path history left by one and append.
-        new_paths = jnp.concatenate(
-            [pt[parent][:, 1:], new_state[:, None]], axis=1
-        )
-        valid = t < n_valid
-        sc = jnp.where(valid, top, sc)
-        ls = jnp.where(valid, new_state, ls)
-        pt = jnp.where(valid, new_paths, pt)
-        pl = jnp.where(valid, jnp.minimum(pl + 1, H), pl)
-        return (sc, ls, pt, pl, t + 1), None
-
-    (scores, last_states, paths, path_len, _), _ = jax.lax.scan(
-        step, (scores, last_states, paths, path_len, jnp.int32(0)), log_obs,
-        unroll=16,
-    )
+    score_before = jnp.max(carry[0])
+    *new_carry, _ = _beam_scan_raw(log_a, log_obs, n_valid, carry)
     return _beam_finalize(
-        (scores, last_states, paths, path_len),
-        score_before, log_obs.shape[0], n_valid,
+        tuple(new_carry), score_before, log_obs.shape[0], n_valid
     )
 
 
@@ -596,11 +505,8 @@ class MultiStreamDecoder:
     single-stream ``StreamingHMMProcessor`` (reference
     ``streaming.py:322-377``) has no analogue of.
 
-    All per-frame work in the chunk kernel vectorizes over a leading
-    stream axis while the serial frame chain is shared, so additional
-    streams are nearly free until vreg pressure: measured on v5e-1 at
-    (S=12, W=8, 160-frame chunks), 8 streams decode in ~1.3-1.5x ONE
-    stream's chunk latency (~6x serving throughput).
+    The single-stream beam scan is vmapped over a leading stream axis,
+    so all streams share one serial frame chain per chunk.
 
     Usage::
 
@@ -663,10 +569,6 @@ class MultiStreamDecoder:
         )
         return _multi_step(
             self._log_a, self._w, n_valid, carry, features,
-            use_kernel=_use_multi_kernel(
-                self.n, self.num_states, self.chunk_frames,
-                self.beam_width, self.history,
-            ),
         )
 
     # -- raw-audio serving: on-device framing for every stream ---------
@@ -692,9 +594,6 @@ class MultiStreamDecoder:
         F = self.chunk_frames
         tail0 = jnp.zeros((self.n, lag * hop + 1), jnp.float32)
         carry0 = (tail0, jnp.int32(lag), self.init_carry())
-        use_kernel = _use_multi_kernel(
-            self.n, self.num_states, F, self.beam_width, self.history,
-        )
         log_a, w = self._log_a, self._w
 
         @functools.partial(jax.jit, static_argnames=())
@@ -707,48 +606,27 @@ class MultiStreamDecoder:
             # frontend.make_pcm_decode_step).
             feats = jnp.roll(feats, -skip, axis=1)
             n_valid = jnp.int32(F) - skip
-            beam, states, conf = _multi_step(
-                log_a, w, n_valid, beam, feats,
-                use_kernel=use_kernel,
-            )
+            beam, states, conf = _multi_step(log_a, w, n_valid, beam, feats)
             return (tails, jnp.zeros_like(skip), beam), states, conf, n_valid
 
         return step, carry0
 
 
-def _use_multi_kernel(n, s, t, w, h) -> bool:
-    import os
-
-    from .ops.stream_multi import multi_stream_supported
-
-    return (
-        os.environ.get("PYTORCH_HMM_TPU_NO_PALLAS") != "1"
-        and jax.default_backend() == "tpu"
-        and multi_stream_supported(n, s, t, w, h)
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("use_kernel",))
-def _multi_step(log_a, w, n_valid, carry, features, use_kernel: bool):
+@jax.jit
+def _multi_step(log_a, w, n_valid, carry, features):
     N, F, _D = features.shape
     lo = _emit(features.reshape(N * F, -1), *w).reshape(N, F, -1)
     pad = -(-F // _PAD_GRANULE) * _PAD_GRANULE - F
     if pad:
         lo = jnp.pad(lo, ((0, 0), (0, pad), (0, 0)))
     scores_before = carry[0]
-    if use_kernel:
-        from .ops.stream_multi import pallas_beam_chunk_multi
+    # The single-stream scan, vmapped over streams (bit-identical per
+    # stream; renormalization happens below).
+    def one(lo_n, c_n):
+        sc, ls, pt, pl_, t = _beam_scan_raw(log_a, lo_n, n_valid, c_n)
+        return sc, ls, pt, pl_
 
-        new_carry = pallas_beam_chunk_multi(log_a, lo, n_valid, carry)
-    else:
-        # CPU / unsupported shapes: vmap the single-stream XLA scan
-        # (bit-identical per stream, including the same raw-carry
-        # convention as the kernel — renormalization happens below).
-        def one(lo_n, c_n):
-            sc, ls, pt, pl_, t = _beam_scan_raw(log_a, lo_n, n_valid, c_n)
-            return sc, ls, pt, pl_
-
-        new_carry = jax.vmap(one)(lo, carry)
+    new_carry = jax.vmap(one)(lo, carry)
     (fin_carry, states, conf) = jax.vmap(
         lambda c, sb: _beam_finalize(c, sb, lo.shape[1], n_valid)
     )(new_carry, scores_before)
@@ -756,18 +634,22 @@ def _multi_step(log_a, w, n_valid, carry, features, use_kernel: bool):
 
 
 def _beam_scan_raw(log_a, log_obs, n_valid, carry):
-    """The raw beam scan of ``_beam_step_xla`` WITHOUT the finalize —
-    the per-stream oracle for the multi-stream paths."""
-    S = log_a.shape[0]
+    """The beam scan of ``_beam_step`` without the finalize: returns the
+    raw carry ``(scores, last_states, paths, path_len, frames)``."""
     scores, last_states, paths, path_len = carry
     W, H = paths.shape
 
     def step(c, xs):
         sc, ls, pt, pl, t = c
         lo_t = xs
-        first = sc[:, None] + lo_t[None, :]
+        first = sc[:, None] + lo_t[None, :]                      # (W, S)
         cont = sc[:, None] + log_a[ls] + lo_t[None, :]
-        table = jnp.where(pl == 0, first, cont)
+        table = jnp.where(pl == 0, first, cont)                  # (W, S)
+        # Hypotheses in the same state are redundant (Markov property):
+        # keep only the best parent per state, THEN take the top-W
+        # states. A flat top_k over (W·S) would fill the beam with
+        # tied duplicates of one state, silently collapsing the beam
+        # to width 1.
         best_per_state = jnp.max(table, axis=0)
         parent_per_state = jnp.argmax(table, axis=0)
         top, new_state = jax.lax.top_k(best_per_state, W)

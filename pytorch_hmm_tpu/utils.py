@@ -234,7 +234,7 @@ def create_duration_constrained_matrix(
 
     Encodes min/max dwell time by expanding each state into
     ``max_duration`` sub-states — (state, dwell) pairs. This construction
-    is actually the TPU-friendly formulation of hard duration constraints
+    is the accelerator-friendly formulation of hard duration constraints
     (static shapes, a plain HMM afterwards), so we keep it exactly.
     Returns ``(num_states * max_duration, num_states * max_duration)``.
     """
@@ -299,7 +299,7 @@ def gaussian_log_likelihood(
     Reference loops over states with explicit ``inverse``/``det``
     (``utils.py:373-419``); here all K states are scored in one batched
     Cholesky + triangular solve — O(K D³) once plus O(B T K D²) solves, all
-    MXU-friendly batched matmuls.
+    batched matmuls.
     """
     obs = jnp.asarray(observations)
     squeeze = obs.ndim == 2
@@ -310,7 +310,7 @@ def gaussian_log_likelihood(
     diff = obs[:, :, None, :] - means[None, None]  # (B, T, K, D)
     # Whiten with the precomputed L^{-1} (one K-batched O(D³) solve)
     # instead of a (B, T, K)-batched triangular solve per frame: the
-    # whitening becomes one MXU contraction, and broadcasting a (K,D,D)
+    # whitening becomes one matmul contraction, and broadcasting a (K,D,D)
     # solve against (B,T,K,D) batch dims is not supported anyway.
     from .emissions import tril_inverse
     from .precision import mxu_einsum

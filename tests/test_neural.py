@@ -109,22 +109,21 @@ def test_contextual_neural_hmm(data):
     assert np.allclose(np.asarray(post).sum(-1), 1.0, atol=1e-4)
 
 
-def test_fused_gaussian_emission_matches_xla_path(data):
-    """ops/emit_mlp.py (the inference-path fused trunk+head kernel)
-    must reproduce the XLA gaussian branch exactly (same centered
-    expansion, same precision class) — interpret-mode equality here,
-    re-validated on hardware by the TPU lane."""
+def test_gaussian_emission_all_states_matches_per_state_heads(data):
+    """The all-states scoring (linear heads distributed over
+    ``obs_feats + state_emb``) must equal scoring each state through the
+    embedding-added head path."""
     from pytorch_hmm_tpu.models import NeuralObservationModel
-    from pytorch_hmm_tpu.ops.emit_mlp import fused_emission_supported
 
     obs, _ = data
     m = NeuralObservationModel(
         5, obs.shape[-1], hidden_dim=64, model_type="gaussian",
         rngs=nnx.Rngs(3),
     ).eval()
-    assert fused_emission_supported(obs.shape[-1], 64, 5)
-    ref = m.log_probs(obs)                      # XLA branch (CPU)
-    got = m._fused_gaussian_log_probs(obs)      # kernel, interpret mode
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-4
-    )
+    all_states = np.asarray(m.log_probs(obs))
+    for s in range(5):
+        idx = jnp.full(obs.shape[:2], s, jnp.int32)
+        np.testing.assert_allclose(
+            all_states[..., s], np.asarray(m.log_probs(obs, idx)),
+            rtol=1e-4, atol=1e-4,
+        )

@@ -1,16 +1,19 @@
-"""Pallas HSMM Viterbi kernel parity vs the core segment-DP scan
-(interpret mode on the CPU conftest platform; the same code path
-compiles on TPU)."""
+"""HSMM segment DP (``core.hsmm``) vs brute-force enumeration of every
+segmentation: Viterbi paths and scores, log Z, posteriors, minimum
+durations, ragged batches and the closed-form gradients."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pytorch_hmm_tpu.core.hsmm import hsmm_viterbi as core_hsmm_viterbi
-from pytorch_hmm_tpu.ops import (
-    auto_hsmm_viterbi,
-    hsmm_smallk_supported,
-    hsmm_smallk_viterbi,
+from oracle import hsmm_brute
+from pytorch_hmm_tpu.core.hsmm import (
+    hsmm_backward,
+    hsmm_forward,
+    hsmm_log_z,
+    hsmm_posteriors,
+    hsmm_viterbi,
 )
 
 
@@ -21,7 +24,7 @@ def _problem(B, T, S, D, seed, min_duration=1):
     np.fill_diagonal(a, 0.0)
     a = a / a.sum(axis=1, keepdims=True)
     la = jnp.asarray(np.log(a + 1e-12), jnp.float32)
-    lp = jnp.asarray(np.full(S, -np.log(S)), jnp.float32)
+    lp = jnp.asarray(np.log(rng.dirichlet(np.ones(S))), jnp.float32)
     dur = rng.dirichlet(np.ones(D), size=S)
     ld = np.log(dur + 1e-12)
     if min_duration > 1:
@@ -29,102 +32,116 @@ def _problem(B, T, S, D, seed, min_duration=1):
     return lo, la, lp, jnp.asarray(ld, jnp.float32)
 
 
-@pytest.mark.parametrize(
-    "B,T,S,D,seed",
-    [
-        (4, 200, 10, 20, 0),     # the benchmark regime
-        (2, 300, 5, 7, 1),       # non-pow2 everything, T % chunk != 0
-        (3, 128, 16, 32, 2),     # exact chunk boundary
-        (1, 12, 3, 20, 3),       # T < D (durations clipped by t)
-        (2, 1, 4, 5, 4),         # single frame
-        (2, 260, 8, 3, 5),       # tiny D, 3 chunks
-    ],
-)
-def test_hsmm_kernel_matches_core(B, T, S, D, seed):
+def _brute(lo, la, lp, ld, b, L=None):
+    L = lo.shape[1] if L is None else L
+    f64 = lambda x: np.asarray(x, np.float64)
+    return hsmm_brute(f64(lo[b, :L]), f64(la), f64(lp), f64(ld))
+
+
+_SHAPES = [
+    (2, 6, 3, 4, 0),      # T > D
+    (2, 5, 2, 7, 1),      # D > T (durations clipped by the sequence)
+    (1, 1, 3, 3, 2),      # single frame
+    (2, 7, 2, 1, 3),      # D = 1: a plain HMM without self-loops
+    (3, 6, 3, 2, 4),
+    (1, 8, 2, 3, 5),
+]
+
+
+@pytest.mark.parametrize("B,T,S,D,seed", _SHAPES)
+def test_hsmm_viterbi_matches_brute_force(B, T, S, D, seed):
     lo, la, lp, ld = _problem(B, T, S, D, seed)
-    st_k, sc_k = hsmm_smallk_viterbi(lo, la, lp, ld)
-    st_c, sc_c = core_hsmm_viterbi(lo, la, lp, ld)
-    np.testing.assert_array_equal(np.asarray(st_k), np.asarray(st_c))
-    np.testing.assert_array_equal(np.asarray(sc_k), np.asarray(sc_c))
+    st, sc = hsmm_viterbi(lo, la, lp, ld)
+    for b in range(B):
+        path, score, _, _ = _brute(lo, la, lp, ld, b)
+        np.testing.assert_array_equal(np.asarray(st[b]), path)
+        np.testing.assert_allclose(float(sc[b]), score, rtol=1e-5)
 
 
-def test_hsmm_kernel_min_duration():
-    lo, la, lp, ld = _problem(3, 150, 6, 12, 7, min_duration=4)
-    st_k, sc_k = hsmm_smallk_viterbi(lo, la, lp, ld)
-    st_c, sc_c = core_hsmm_viterbi(lo, la, lp, ld)
-    np.testing.assert_array_equal(np.asarray(st_k), np.asarray(st_c))
-    np.testing.assert_array_equal(np.asarray(sc_k), np.asarray(sc_c))
+@pytest.mark.parametrize("B,T,S,D,seed", _SHAPES)
+def test_hsmm_log_z_matches_brute_force(B, T, S, D, seed):
+    lo, la, lp, ld = _problem(B, T, S, D, seed)
+    _, lz = hsmm_forward(lo, la, lp, ld)
+    lz_cf = hsmm_log_z(lo, la, lp, ld)
+    for b in range(B):
+        _, _, ref, _ = _brute(lo, la, lp, ld, b)
+        np.testing.assert_allclose(float(lz[b]), ref, rtol=1e-5)
+        np.testing.assert_allclose(float(lz_cf[b]), ref, rtol=1e-5)
 
 
-def test_hsmm_kernel_tie_breaks():
-    """Uniform emissions + uniform durations force exact score ties;
-    the kernel must break them like jnp.argmax (lowest index)."""
-    B, T, S, D = 2, 96, 4, 6
+@pytest.mark.parametrize("B,T,S,D,seed", _SHAPES[:3])
+def test_hsmm_posteriors_match_brute_force(B, T, S, D, seed):
+    lo, la, lp, ld = _problem(B, T, S, D, seed)
+    post = hsmm_posteriors(lo, la, lp, ld)
+    gamma = np.asarray(post["gamma"])
+    for b in range(B):
+        _, _, _, ref = _brute(lo, la, lp, ld, b)
+        np.testing.assert_allclose(gamma[b], ref, atol=1e-5)
+
+
+def test_hsmm_min_duration_matches_brute_force():
+    lo, la, lp, ld = _problem(2, 8, 2, 5, 7, min_duration=3)
+    st, sc = hsmm_viterbi(lo, la, lp, ld)
+    _, lz = hsmm_forward(lo, la, lp, ld)
+    for b in range(2):
+        path, score, ref_lz, _ = _brute(lo, la, lp, ld, b)
+        np.testing.assert_array_equal(np.asarray(st[b]), path)
+        np.testing.assert_allclose(float(sc[b]), score, rtol=1e-5)
+        np.testing.assert_allclose(float(lz[b]), ref_lz, rtol=1e-5)
+        # Every segment is at least 3 frames long.
+        runs = np.diff(np.flatnonzero(np.diff(np.r_[-1, path, -1])))
+        assert (runs >= 3).all()
+
+
+def test_hsmm_tie_breaks_are_deterministic():
+    """Uniform emissions and durations force exact score ties: the decode
+    is a valid segmentation scoring the brute-force maximum."""
+    B, T, S, D = 2, 6, 3, 3
     lo = jnp.zeros((B, T, S), jnp.float32)
     a = np.full((S, S), 1.0 / (S - 1))
     np.fill_diagonal(a, 0.0)
-    la = jnp.asarray(np.log(a), jnp.float32)
+    la = jnp.asarray(np.log(a + 1e-12), jnp.float32)
     lp = jnp.asarray(np.full(S, -np.log(S)), jnp.float32)
     ld = jnp.asarray(np.full((S, D), -np.log(D)), jnp.float32)
-    st_k, sc_k = hsmm_smallk_viterbi(lo, la, lp, ld)
-    st_c, sc_c = core_hsmm_viterbi(lo, la, lp, ld)
-    np.testing.assert_array_equal(np.asarray(st_k), np.asarray(st_c))
-    np.testing.assert_array_equal(np.asarray(sc_k), np.asarray(sc_c))
+    st, sc = hsmm_viterbi(lo, la, lp, ld)
+    st2, _ = hsmm_viterbi(lo, la, lp, ld)
+    np.testing.assert_array_equal(np.asarray(st), np.asarray(st2))
+    _, score, _, _ = _brute(lo, la, lp, ld, 0)
+    np.testing.assert_allclose(np.asarray(sc), score, rtol=1e-5)
 
 
-@pytest.mark.parametrize("T,lengths", [
-    (200, [200, 61, 128, 1]),
-    (130, [97, 130, 12, 45]),
-])
-def test_hsmm_kernel_ragged(T, lengths):
-    lo, la, lp, ld = _problem(4, T, 9, 15, 11)
+@pytest.mark.parametrize("T,lengths", [(8, [8, 3]), (7, [5, 7])])
+def test_hsmm_ragged_matches_brute_force(T, lengths):
+    lo, la, lp, ld = _problem(2, T, 3, 4, 11)
     lens = jnp.asarray(lengths, jnp.int32)
-    st_k, sc_k = hsmm_smallk_viterbi(lo, la, lp, ld, lens)
-    st_c, sc_c = core_hsmm_viterbi(lo, la, lp, ld, lens)
-    np.testing.assert_array_equal(np.asarray(st_k), np.asarray(st_c))
-    np.testing.assert_array_equal(np.asarray(sc_k), np.asarray(sc_c))
+    st, sc = hsmm_viterbi(lo, la, lp, ld, lens)
+    lz = hsmm_log_z(lo, la, lp, ld, lens)
+    for b, L in enumerate(lengths):
+        path, score, ref_lz, _ = _brute(lo, la, lp, ld, b, L)
+        np.testing.assert_array_equal(np.asarray(st[b, :L]), path)
+        assert (np.asarray(st[b, L:]) == path[-1]).all()
+        np.testing.assert_allclose(float(sc[b]), score, rtol=1e-5)
+        np.testing.assert_allclose(float(lz[b]), ref_lz, rtol=1e-5)
 
 
-def test_hsmm_kernel_ragged_matches_unpadded():
-    """Each ragged row's decoded prefix equals its standalone decode."""
+def test_hsmm_ragged_matches_unpadded():
+    """Each ragged row's decoded prefix equals its standalone decode, at
+    a benchmark-like shape."""
     lo, la, lp, ld = _problem(3, 180, 7, 10, 13)
     lens = [180, 77, 133]
-    st, sc = hsmm_smallk_viterbi(lo, la, lp, ld, jnp.asarray(lens))
+    st, sc = hsmm_viterbi(lo, la, lp, ld, jnp.asarray(lens))
     for b, L in enumerate(lens):
-        st1, sc1 = hsmm_smallk_viterbi(lo[b : b + 1, :L], la, lp, ld)
-        np.testing.assert_array_equal(
-            np.asarray(st)[b, :L], np.asarray(st1)[0]
-        )
-        np.testing.assert_array_equal(np.asarray(sc)[b], np.asarray(sc1)[0])
-        # Padded frames repeat the final valid state.
+        st1, sc1 = hsmm_viterbi(lo[b : b + 1, :L], la, lp, ld)
+        np.testing.assert_array_equal(np.asarray(st)[b, :L],
+                                      np.asarray(st1)[0])
+        np.testing.assert_allclose(np.asarray(sc)[b], np.asarray(sc1)[0],
+                                   rtol=1e-6)
         assert (np.asarray(st)[b, L:] == np.asarray(st)[b, L - 1]).all()
-
-
-def test_supported_predicate_and_fallback():
-    assert hsmm_smallk_supported(10, 20, 32)
-    assert not hsmm_smallk_supported(64, 20, 32)   # S cap
-    assert not hsmm_smallk_supported(10, 200, 32)  # D cap
-    assert not hsmm_smallk_supported(10, 20, 512)  # B cap
-    with pytest.raises(ValueError):
-        hsmm_smallk_viterbi(
-            jnp.zeros((1, 8, 64), jnp.float32),
-            jnp.zeros((64, 64), jnp.float32),
-            jnp.zeros((64,), jnp.float32),
-            jnp.zeros((64, 200), jnp.float32),
-        )
-    # auto dispatch falls back to core off-TPU / out of range.
-    lo, la, lp, ld = _problem(2, 50, 6, 8, 17)
-    st_a, sc_a = auto_hsmm_viterbi(lo, la, lp, ld)
-    st_c, sc_c = core_hsmm_viterbi(lo, la, lp, ld)
-    np.testing.assert_array_equal(np.asarray(st_a), np.asarray(st_c))
-    np.testing.assert_array_equal(np.asarray(sc_a), np.asarray(sc_c))
 
 
 def test_hsmm_log_z_closed_form_grads_match_autodiff():
     """hsmm_log_z's custom VJP (posterior-expectation cotangents) must
     match differentiating through the forward scan, ragged included."""
-    from pytorch_hmm_tpu.core.hsmm import hsmm_forward, hsmm_log_z
-
     B, T, S, D = 3, 60, 6, 9
     lo, la, lp, ld = _problem(B, T, S, D, 21, min_duration=3)
     w = jnp.asarray([1.0, 2.0, -0.5])
@@ -138,8 +155,6 @@ def test_hsmm_log_z_closed_form_grads_match_autodiff():
         np.testing.assert_allclose(
             f_auto(lo, la, lp, ld), f_cf(lo, la, lp, ld), rtol=1e-6
         )
-        import jax
-
         ga = jax.grad(f_auto, argnums=(0, 1, 2, 3))(lo, la, lp, ld)
         gc = jax.grad(f_cf, argnums=(0, 1, 2, 3))(lo, la, lp, ld)
         for name, x, y in zip(("obs", "a", "pi", "dur"), ga, gc):
@@ -148,77 +163,11 @@ def test_hsmm_log_z_closed_form_grads_match_autodiff():
             )
 
 
-@pytest.mark.parametrize("B,T,S,D,seed", [
-    (4, 200, 10, 20, 31),
-    (2, 300, 5, 7, 32),
-    (1, 12, 3, 20, 33),
-])
-def test_hsmm_sum_kernels_match_core(B, T, S, D, seed):
-    from pytorch_hmm_tpu.core.hsmm import hsmm_backward, hsmm_forward
-    from pytorch_hmm_tpu.ops import (
-        hsmm_smallk_backward,
-        hsmm_smallk_forward,
-    )
-
-    lo, la, lp, ld = _problem(B, T, S, D, seed)
-    al_k, lz_k = hsmm_smallk_forward(lo, la, lp, ld)
-    al_c, lz_c = hsmm_forward(lo, la, lp, ld)
-    np.testing.assert_allclose(np.asarray(al_k), np.asarray(al_c),
-                               atol=5e-4)
-    np.testing.assert_allclose(np.asarray(lz_k), np.asarray(lz_c),
-                               atol=5e-4)
-    bs_k, bt_k = hsmm_smallk_backward(lo, la, ld)
-    bs_c, bt_c = hsmm_backward(lo, la, ld)
-    np.testing.assert_allclose(np.asarray(bs_k), np.asarray(bs_c),
-                               atol=5e-4)
-    np.testing.assert_allclose(np.asarray(bt_k), np.asarray(bt_c),
-                               atol=5e-4)
-
-
-def test_hsmm_sum_kernels_ragged():
-    from pytorch_hmm_tpu.core.hsmm import hsmm_backward, hsmm_forward
-    from pytorch_hmm_tpu.ops import (
-        hsmm_smallk_backward,
-        hsmm_smallk_forward,
-    )
-
-    lo, la, lp, ld = _problem(4, 200, 9, 15, 41)
-    lens = jnp.asarray([200, 61, 128, 17], jnp.int32)
-    al_k, lz_k = hsmm_smallk_forward(lo, la, lp, ld, lens)
-    al_c, lz_c = hsmm_forward(lo, la, lp, ld, lens)
-    np.testing.assert_allclose(np.asarray(lz_k), np.asarray(lz_c),
-                               atol=5e-4)
-    # Table entries are only specified in-range.
-    for b, L in enumerate([200, 61, 128, 17]):
-        np.testing.assert_allclose(
-            np.asarray(al_k)[b, :L], np.asarray(al_c)[b, :L], atol=5e-4
-        )
-    bs_k, bt_k = hsmm_smallk_backward(lo, la, ld, lens)
-    bs_c, bt_c = hsmm_backward(lo, la, ld, lens)
-    for b, L in enumerate([200, 61, 128, 17]):
-        np.testing.assert_allclose(
-            np.asarray(bs_k)[b, :L], np.asarray(bs_c)[b, :L], atol=5e-4
-        )
-        np.testing.assert_allclose(
-            np.asarray(bt_k)[b, :L], np.asarray(bt_c)[b, :L], atol=5e-4
-        )
-
-
-def test_hsmm_fused_fb_matches_separate_kernels(rng):
-    """hsmm_smallk_fb (one fused pass) vs the separate fwd/bwd kernels
-    — the auto_hsmm_posteriors dispatch path for unragged batches."""
-    from pytorch_hmm_tpu.ops.hsmm_smallk import (
-        hsmm_smallk_backward, hsmm_smallk_fb, hsmm_smallk_forward)
-
-    B, T, S, D = 3, 190, 7, 9
-    lo = jnp.asarray(rng.normal(size=(B, T, S)), jnp.float32)
-    la = jnp.asarray(np.log(rng.dirichlet(np.ones(S), size=S)), jnp.float32)
-    lpi = jnp.full((S,), -np.log(float(S)))
-    ld = jnp.asarray(np.log(rng.dirichlet(np.ones(D), size=S)), jnp.float32)
-    a1, z1, bs1, bt1 = hsmm_smallk_fb(lo, la, lpi, ld)
-    a0, z0 = hsmm_smallk_forward(lo, la, lpi, ld)
-    bs0, bt0 = hsmm_smallk_backward(lo, la, ld)
-    np.testing.assert_allclose(a1, a0, atol=2e-4)
-    np.testing.assert_allclose(z1, z0, atol=2e-4)
-    np.testing.assert_allclose(bs1, bs0, atol=2e-4)
-    np.testing.assert_allclose(bt1, bt0, atol=2e-4)
+def test_hsmm_backward_completes_forward():
+    """beta* at the start of each segment combined with the entry scores
+    gives the same log Z as the forward pass."""
+    lo, la, lp, ld = _problem(2, 40, 4, 6, 23)
+    _, lz = hsmm_forward(lo, la, lp, ld)
+    bstar, bstart = hsmm_backward(lo, la, ld)
+    lz0 = jax.scipy.special.logsumexp(lp[None] + bstart[:, 0], axis=-1)
+    np.testing.assert_allclose(np.asarray(lz0), np.asarray(lz), rtol=1e-5)

@@ -1,29 +1,13 @@
-"""Pallas streaming-chunk kernel parity vs the XLA scan steps
-(interpret mode on the CPU conftest platform; the same code path
-compiles on TPU)."""
+"""Streaming chunk decoders (``streaming._greedy_step``/``_beam_step``) vs
+a frame-by-frame NumPy oracle: padding tails, carried history, tie-breaks
+and chunk chaining."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pytorch_hmm_tpu.ops.stream import (
-    pallas_greedy_chunk,
-    stream_chunk_supported,
-)
-from pytorch_hmm_tpu.streaming import _beam_step_xla, _greedy_step_xla
-
-
-def pallas_beam_chunk(la, lo, nv, carry):
-    """Single-stream beam via the N=1 multi-stream kernel — the
-    production dispatch path of ``streaming._beam_step``."""
-    from pytorch_hmm_tpu.ops.stream_multi import pallas_beam_chunk_multi
-
-    sc, ls, pt, pl_ = carry
-    nsc, nls, npt, npl = pallas_beam_chunk_multi(
-        la, lo[None], nv,
-        (sc[None], ls[None], pt[None], jnp.asarray(pl_, jnp.int32)[None]),
-    )
-    return nsc[0], nls[0], npt[0], npl[0]
+from oracle import beam_stream, greedy_stream
+from pytorch_hmm_tpu.streaming import _beam_finalize, _beam_step, _greedy_step
 
 
 def _problem(T, S, seed):
@@ -37,6 +21,14 @@ def _problem(T, S, seed):
     return la, lo
 
 
+def _beam_carry(W, H, S, plen, seed):
+    rng = np.random.default_rng(seed)
+    sc = jnp.asarray(-np.sort(rng.random(W)) * 3, jnp.float32)
+    ls = jnp.asarray(rng.integers(0, S, W), jnp.int32)
+    pt = jnp.asarray(rng.integers(0, S, (W, H)), jnp.int32)
+    return sc, ls, pt, jnp.int32(plen)
+
+
 @pytest.mark.parametrize("T,S,nv,seed", [
     (160, 12, 160, 0),
     (192, 12, 160, 1),     # padding tail (invalid frames)
@@ -44,31 +36,14 @@ def _problem(T, S, seed):
     (8, 3, 3, 3),          # mostly-invalid chunk
 ])
 @pytest.mark.parametrize("has_prev", [False, True])
-def test_greedy_chunk_matches_xla(T, S, nv, seed, has_prev):
+def test_greedy_chunk_matches_oracle(T, S, nv, seed, has_prev):
     la, lo = _problem(T, S, seed)
-    carry = (jnp.int32(2 % S), jnp.bool_(has_prev))
-    n_valid = jnp.int32(nv)
-    (p_k, h_k), st_k, cf_k = pallas_greedy_chunk(la, lo, n_valid, carry)
-    (p_x, h_x), st_x, cf_x = _greedy_step_xla(la, lo, n_valid, carry)
-    np.testing.assert_array_equal(np.asarray(st_k), np.asarray(st_x))
-    np.testing.assert_array_equal(np.asarray(cf_k), np.asarray(cf_x))
-    assert int(p_k) == int(p_x)
-    assert bool(h_k) == bool(h_x)
-
-
-def _beam_carry(W, H, S, path_len, seed):
-    rng = np.random.default_rng(seed)
-    if path_len == 0:
-        scores = jnp.full((W,), -np.log(float(S)), jnp.float32)
-        paths = jnp.zeros((W, H), jnp.int32)
-    else:
-        scores = jnp.asarray(rng.normal(size=(W,)), jnp.float32)
-        scores = scores - scores.max()
-        paths = jnp.asarray(
-            rng.integers(0, S, size=(W, H)), jnp.int32
-        )
-    states = jnp.asarray(np.arange(W) % S, jnp.int32)
-    return (scores, states, paths, jnp.asarray(path_len, jnp.int32))
+    carry = (jnp.int32(seed % S), jnp.asarray(has_prev))
+    (p, h), st, cf = _greedy_step(la, lo, jnp.int32(nv), carry)
+    p0, h0, st0, sc0 = greedy_stream(la, lo, nv, seed % S, has_prev)
+    assert int(p) == p0 and bool(h) == h0
+    np.testing.assert_array_equal(np.asarray(st), st0)
+    np.testing.assert_allclose(np.asarray(cf), np.exp(sc0), rtol=1e-6)
 
 
 @pytest.mark.parametrize("T,S,W,H,nv,plen,seed", [
@@ -77,70 +52,67 @@ def _beam_carry(W, H, S, path_len, seed):
     (64, 5, 4, 70, 60, 30, 2),        # partial history
     (16, 6, 6, 40, 9, 0, 3),          # invalid tail on first chunk
 ])
-def test_beam_chunk_matches_xla(T, S, W, H, nv, plen, seed):
+def test_beam_chunk_matches_oracle(T, S, W, H, nv, plen, seed):
     la, lo = _problem(T, S, seed)
-    carry = _beam_carry(W, H, S, plen, seed + 10)
-    n_valid = jnp.int32(nv)
-    ck, st_k, cf_k = pallas_beam_chunk(la, lo, n_valid, carry), None, None
-    # pallas_beam_chunk returns only the carry; finalize like _beam_step.
-    from pytorch_hmm_tpu.streaming import _beam_finalize
-
-    ck, st_k, cf_k = _beam_finalize(ck, carry[0], T, n_valid)
-    cx, st_x, cf_x = _beam_step_xla(la, lo, n_valid, carry)
-    np.testing.assert_array_equal(np.asarray(st_k), np.asarray(st_x))
-    np.testing.assert_array_equal(np.asarray(cf_k), np.asarray(cf_x))
-    for a, b, name in zip(ck, cx, ("scores", "states", "paths", "plen")):
-        np.testing.assert_array_equal(
-            np.asarray(a), np.asarray(b), err_msg=name
-        )
+    carry = _beam_carry(W, H, S, plen, seed)
+    (sc, ls, pt, pl), st, cf = _beam_step(la, lo, jnp.int32(nv), carry)
+    sc0, ls0, pt0, pl0 = beam_stream(la, lo, nv, *carry[:3], plen)
+    np.testing.assert_array_equal(np.asarray(ls), ls0)
+    np.testing.assert_array_equal(np.asarray(pt), pt0)
+    assert int(pl) == pl0
+    # The step renormalizes the carried scores (max subtracted).
+    np.testing.assert_allclose(np.asarray(sc), sc0 - sc0.max(), atol=1e-4)
+    # Decoded states: the last nv entries of the best hypothesis.
+    best = pt0[int(np.argmax(sc0))]
+    np.testing.assert_array_equal(np.asarray(st)[:nv], best[H - nv:])
 
 
 def test_beam_chunk_tie_breaks():
     """Uniform everything: the per-frame top-k and parent argmax run on
-    exact ties and must match lax.top_k / jnp.argmax ordering."""
+    exact ties and must order them by lowest index."""
     T, S, W, H = 32, 6, 4, 40
     la = jnp.full((S, S), -np.log(float(S)), jnp.float32)
     lo = jnp.full((T, S), -np.log(float(S)), jnp.float32)
     carry = _beam_carry(W, H, S, 0, 0)
-    n_valid = jnp.int32(T)
-    from pytorch_hmm_tpu.streaming import _beam_finalize
-
-    ck = pallas_beam_chunk(la, lo, n_valid, carry)
-    ck, st_k, cf_k = _beam_finalize(ck, carry[0], T, n_valid)
-    cx, st_x, cf_x = _beam_step_xla(la, lo, n_valid, carry)
-    np.testing.assert_array_equal(np.asarray(st_k), np.asarray(st_x))
-    for a, b in zip(ck, cx):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    (sc, ls, pt, pl), st, _ = _beam_step(la, lo, jnp.int32(T), carry)
+    sc0, ls0, pt0, pl0 = beam_stream(la, lo, T, *carry[:3], 0)
+    np.testing.assert_array_equal(np.asarray(ls), ls0)
+    np.testing.assert_array_equal(np.asarray(pt), pt0)
 
 
-def test_chunk_chaining_matches_xla():
-    """Three consecutive chunks: carries round-trip identically."""
+def test_chunk_chaining_matches_oracle():
+    """Three consecutive chunks: the carry round-trips like one long
+    oracle decode of the same frames."""
     S, W, H = 7, 5, 50
     la, _ = _problem(4, S, 9)
-    carry_k = _beam_carry(W, H, S, 0, 9)
-    carry_x = carry_k
-    from pytorch_hmm_tpu.streaming import _beam_finalize
-
+    carry = _beam_carry(W, H, S, 0, 9)
+    ref = (carry[0], carry[1], carry[2], 0)
     for i in range(3):
         _, lo = _problem(40, S, 20 + i)
-        nv = jnp.int32(40)
-        ck = pallas_beam_chunk(la, lo, nv, carry_k)
-        carry_k, st_k, _ = _beam_finalize(ck, carry_k[0], 40, nv)
-        carry_x, st_x, _ = _beam_step_xla(la, lo, nv, carry_x)
-        np.testing.assert_array_equal(np.asarray(st_k), np.asarray(st_x))
-    for a, b in zip(carry_k, carry_x):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        carry, st, _ = _beam_step(la, lo, jnp.int32(40), carry)
+        ref = beam_stream(la, lo, 40, *ref)
+        np.testing.assert_array_equal(np.asarray(carry[2]), ref[2])
+    np.testing.assert_array_equal(np.asarray(carry[1]), ref[1])
+    assert int(carry[3]) == ref[3]
 
 
-def test_supported_predicate():
-    assert stream_chunk_supported(12, 192, 8, 165)
-    assert not stream_chunk_supported(200, 192)       # S > 128
-    assert not stream_chunk_supported(12, 2000)       # T too long
-    assert not stream_chunk_supported(12, 192, 16)    # beam too wide
+def test_beam_finalize_confidence():
+    """Per-span confidence is the geometric-mean probability of the
+    frames decoded in the chunk: exp(score delta / n_valid)."""
+    S, W, H, T = 5, 3, 30, 20
+    la, lo = _problem(T, S, 31)
+    carry = _beam_carry(W, H, S, 0, 31)
+    raw = beam_stream(la, lo, T, *carry[:3], 0)
+    _, _, conf = _beam_finalize(
+        (jnp.asarray(raw[0]), jnp.asarray(raw[1]), jnp.asarray(raw[2]),
+         jnp.int32(raw[3])), carry[0], T, jnp.int32(T))
+    expect = np.exp((raw[0].max() - float(jnp.max(carry[0]))) / T)
+    np.testing.assert_allclose(np.asarray(conf), expect, rtol=1e-5)
 
 
-def test_beam_width_gt_states_unsupported():
-    """W > S has no W distinct states — the kernel would emit NaN where
-    lax.top_k raises; the predicate must reject it."""
-    assert not stream_chunk_supported(3, 16, 5, 20)
-    assert stream_chunk_supported(5, 16, 5, 20)
+def test_beam_width_gt_states_rejected():
+    """W > S has no W distinct states: lax.top_k refuses it."""
+    la, lo = _problem(16, 3, 4)
+    carry = _beam_carry(5, 20, 3, 0, 4)
+    with pytest.raises(Exception):
+        _beam_step(la, lo, jnp.int32(16), carry)

@@ -398,11 +398,9 @@ def test_sharded_fb_time_varying_ragged(tv_problem):
 
 
 def test_sharded_scoring_log_likelihood_bigk():
-    """Batch-DP big-K scoring: each device runs the MXU bigk kernel on
-    its shard; result matches the single-device core scan to scoring
-    tolerance (bf16 observation streaming)."""
+    """Batch-DP big-K scoring: each device scores its batch shard with
+    the whole time axis; the result matches the single-device scan."""
     from pytorch_hmm_tpu import core
-    from pytorch_hmm_tpu.ops.bigk import bigk_supported
     from pytorch_hmm_tpu.parallel import (
         make_mesh,
         shard_batch,
@@ -411,7 +409,6 @@ def test_sharded_scoring_log_likelihood_bigk():
 
     mesh = make_mesh(data=8, time=1)
     B, T, K = 16, 256, 192
-    assert bigk_supported(K, B // 8)
     rng = np.random.default_rng(5)
     lo = jnp.asarray(rng.normal(size=(B, T, K)), jnp.float32)
     la = jax.nn.log_softmax(
@@ -422,6 +419,4 @@ def test_sharded_scoring_log_likelihood_bigk():
         shard_batch(mesh, lo), la, lpi, mesh
     )
     ref = core.log_likelihood(lo, la, lpi)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), atol=0.05, rtol=1e-3
-    )
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-6)

@@ -48,12 +48,14 @@ class TestComputeDtypePolicy:
         # Tests run on the CPU backend (conftest): no bf16 MXU there.
         assert precision.compute_dtype() == jnp.float32
 
-    def test_tpu_resolves_bf16_when_enabled(self, monkeypatch):
+    def test_gpu_resolves_f32_either_way(self, monkeypatch):
+        # The flag picks the multiply precision (TF32 or HIGHEST on the
+        # GPU), never the operand dtype.
         monkeypatch.setattr(
-            precision.jax, "default_backend", lambda: "tpu"
+            precision.jax, "default_backend", lambda: "gpu"
         )
         precision.set_mixed_precision(True)
-        assert precision.compute_dtype() == jnp.bfloat16
+        assert precision.compute_dtype() == jnp.float32
         precision.set_mixed_precision(False)
         assert precision.compute_dtype() == jnp.float32
 
@@ -72,12 +74,9 @@ class TestComputeDtypePolicy:
 
 class TestBf16CompiledDtype:
     def test_flag_changes_compiled_precision(self, monkeypatch):
-        """Flag ON (TPU policy) → contractions at backend-default
-        precision (bf16 MXU passes); OFF → Precision.HIGHEST (true f32)
-        appears in the compiled program."""
-        monkeypatch.setattr(
-            precision.jax, "default_backend", lambda: "tpu"
-        )
+        """Flag ON → contractions at backend-default precision (TF32 on
+        the GPU); OFF → Precision.HIGHEST (true f32) appears in the
+        compiled program."""
         obs, means, log_vars, logits = _problem()
 
         def make_fn():
@@ -221,7 +220,7 @@ class TestNeuralMixedPrecision:
 
         precision.set_mixed_precision(True)
         m = ph.NeuralObservationModel(3, 8, hidden_dim=16, rngs=nnx.Rngs(0))
-        assert m.fe1.precision is None  # backend default (bf16 on TPU)
+        assert m.fe1.precision is None  # backend default (TF32 on the GPU)
         obs = jax.random.normal(jax.random.PRNGKey(0), (2, 12, 8))
         out = m.log_probs(obs)
         # scoring boundary: DP input stays f32, values finite

@@ -189,81 +189,3 @@ def test_neural_sample_guard():
                                   rngs=nnx.Rngs(0))
     with pytest.raises(NotImplementedError, match="gaussian"):
         m.sample(jnp.zeros((1, 5), jnp.int32))
-
-
-def test_prob_kernel_safe_concrete_array_under_outer_trace():
-    """_prob_kernel_safe on a CONCRETE log_a must not stage ops into a
-    caller's active trace: a jnp.isfinite there becomes a tracer inside
-    any outer jit and bool() raises TracerBoolConversionError — this
-    broke every jit-wrapped auto_forward call on the T>=1024 TPU
-    dispatch path (r4 bench long-context row)."""
-    from pytorch_hmm_tpu.ops import _prob_kernel_safe
-
-    finite = jnp.zeros((4, 4))
-    hard_zero = jnp.zeros((4, 4)).at[0, 1].set(-jnp.inf)
-    seen = {}
-
-    @jax.jit
-    def f(x):
-        seen["finite"] = _prob_kernel_safe(finite)
-        seen["hard_zero"] = _prob_kernel_safe(hard_zero)
-        seen["traced"] = _prob_kernel_safe(x @ x)
-        return x
-
-    f(jnp.eye(4))
-    assert seen == {"finite": True, "hard_zero": False, "traced": None}
-
-
-def test_prob_ok_traced_log_a_keeps_log_kernel_below_4096():
-    """ADVICE r4: under an outer jit log_a is a tracer, so hard-zero
-    transitions can't be detected — the prob-space kernels (whose
-    rescale floor can silently corrupt alpha on -inf transitions) must
-    then only take over at T >= 4096, where their win is decisive; the
-    envelope-free log-space kernel keeps the 1024..4096 window."""
-    from pytorch_hmm_tpu.ops import _prob_ok
-
-    finite = jnp.zeros((4, 4))
-    hard_zero = jnp.zeros((4, 4)).at[0, 1].set(-jnp.inf)
-    seen = {}
-
-    @jax.jit
-    def f(x):
-        la = x @ x  # traced
-        seen["traced_2048"] = _prob_ok(la, 2048)
-        seen["traced_4096"] = _prob_ok(la, 4096)
-        seen["finite_2048"] = _prob_ok(finite, 2048)
-        seen["hard_zero_131072"] = _prob_ok(hard_zero, 131072)
-        return x
-
-    f(jnp.eye(4))
-    assert seen == {
-        "traced_2048": False,      # unknown safety: log-space kernel
-        "traced_4096": True,       # documented envelope, decisive win
-        "finite_2048": True,       # verified finite: prob kernel early
-        "hard_zero_131072": False,  # verified unsafe at any T
-    }
-
-
-def test_hsmm_fused_fb_has_its_own_vmem_gate():
-    """ADVICE r4: the fused FB kernel allocates a third (Ds, Ss, Bp)
-    duration ring beyond hsmm_smallk_supported's 2-ring model, so a
-    near-budget shape can pass the generic gate yet exceed the fused
-    envelope. S=32, D=32, B=128 sits exactly on that boundary: the
-    separate kernels fit, the fused one must refuse (and
-    auto_hsmm_posteriors falls back to the separate kernels)."""
-    from pytorch_hmm_tpu.ops.hsmm_smallk import (
-        hsmm_smallk_fb,
-        hsmm_smallk_fb_supported,
-        hsmm_smallk_supported,
-    )
-
-    assert hsmm_smallk_supported(32, 32, 128)
-    assert not hsmm_smallk_fb_supported(32, 32, 128)
-    # The everyday bench shape fits both.
-    assert hsmm_smallk_fb_supported(10, 20, 32)
-
-    with pytest.raises(ValueError, match="separate"):
-        hsmm_smallk_fb(
-            jnp.zeros((128, 8, 32)), jnp.zeros((32, 32)),
-            jnp.zeros((32,)), jnp.zeros((32, 32)),
-        )

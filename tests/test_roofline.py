@@ -1,43 +1,38 @@
-"""Roofline accounting sanity: every bench-row model must audit.
+"""Roofline accounting: peaks keyed by device kind, bounds from shapes."""
+import pytest
 
-The audit feeds BENCH_r*.json; a broken model dies silently inside
-bench.py's try/except, so this guards the accounting itself.
-"""
-import math
-
-from pytorch_hmm_tpu.roofline import BENCH_MODELS, V5E, audit
+from pytorch_hmm_tpu.roofline import PEAKS, peaks, roofline
 
 
-def test_every_model_audits():
-    for name in BENCH_MODELS:
-        out = audit(name, 1e-3)
-        assert out is not None, name
-        assert out["ceiling_ms"] > 0, name
-        assert math.isfinite(out["frac_of_ceiling"]), name
-        # frac at exactly the ceiling time must be ~1.0 (ceiling_ms is
-        # rounded to 4 decimals, so small rows carry rounding error)
-        at_ceiling = audit(name, out["ceiling_ms"] * 1e-3)
-        assert abs(at_ceiling["frac_of_ceiling"] - 1.0) < 1e-2, name
+def test_h200_peaks_are_the_published_ones():
+    p = peaks("NVIDIA H200")
+    assert p["hbm_bytes_per_s"] == 4.8e12
+    assert p["bf16_flops"] == 989e12
+    assert p["tf32_flops"] == 495e12
 
 
-def test_mfu_reported_on_mxu_rows():
-    for name in (
-        "bigk_forward_ll_b48_T2048_k512",
-        "mixture_gaussian_full_cov_decode_rtf_b32_T1000_s12_c4_d80",
-        "neural_hmm_forward_rtf_b16_T1000_s12_h256",
-    ):
-        assert "mfu_pct" in audit(name, 1e-3), name
+def test_unknown_device_is_an_error():
+    with pytest.raises(KeyError, match="no published peaks"):
+        peaks("cpu")
+    with pytest.raises(KeyError):
+        roofline(1e-3, "Unlisted Device 1", hbm_bytes=1.0)
 
 
-def test_unknown_metric_returns_none():
-    assert audit("not_a_row", 1e-3) is None
+@pytest.mark.parametrize("kind", sorted(PEAKS))
+def test_bound_at_the_bound_is_one(kind):
+    # 4.8 GB at 4.8 TB/s is 1 ms: a 1 ms measurement sits at the bound.
+    out = roofline(1e-3, kind, hbm_bytes=PEAKS[kind]["hbm_bytes_per_s"] * 1e-3)
+    assert out["binding"] == "hbm"
+    assert out["bound_ms"] == pytest.approx(1.0)
+    assert out["frac_of_bound"] == pytest.approx(1.0)
+    assert "mfu_pct" not in out
 
 
-def test_measured_floor_constants_are_ordered():
-    # The per-family measured floors must respect their structural
-    # ordering: HIGHEST chain > DEFAULT chain; ring > plain decode
-    # pair; beam floors grow with N.
-    assert V5E["serial_step_hi"] > V5E["serial_step"]
-    assert V5E["step_pair_hsmm_ring"] > V5E["step_pair_decode"]
-    assert (V5E["step_pair_beam1"] < V5E["step_pair_beam8"]
-            < V5E["step_pair_beam16"])
+def test_matmul_bound_and_mfu():
+    kind = "NVIDIA H200"
+    flops = PEAKS[kind]["bf16_flops"] * 2e-3        # 2 ms at peak
+    out = roofline(4e-3, kind, hbm_bytes=1e6, matmul_flops=flops,
+                   matmul_rate="bf16_flops")
+    assert out["binding"] == "matmul"
+    assert out["frac_of_bound"] == pytest.approx(0.5)
+    assert out["mfu_pct"] == pytest.approx(50.0)
